@@ -119,16 +119,15 @@ def profile_serve(render_chunks, n_rays: int) -> None:
     """Where the serve time goes: time ``render_chunks()`` without the
     profiler, then trace it with torch.profiler.  Prints the device's busy
     and idle share (kernel time over the untraced wall time), kernel time by
-    stage of the render loop (kernels attributed by their place on the GPU
+    stage of the render loop (the ``record_function`` ranges that
+    ``rendering.py`` opens; kernels attributed by their place on the GPU
     timeline), and the top kernels.  The full table goes to
     chiprun_out/profile_serve.txt."""
     import bisect
     from pathlib import Path
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    import nerfacc_tpu_torch.rendering as rendering
+    from torch.profiler import ProfilerActivity, profile
 
     stages = ("traverse_grids", "compact_indices_from_counts",
               "render_weight_from_density", "accumulate_along_rays")
@@ -138,25 +137,11 @@ def profile_serve(render_chunks, n_rays: int) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    originals = {name: getattr(rendering, name) for name in stages}
-
-    def traced(name, fn):
-        def wrapper(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    for name, fn in originals.items():
-        setattr(rendering, name, traced(name, fn))
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            render_chunks()
-            torch.cuda.synchronize()
-            wall_traced = time.perf_counter() - t0
-    finally:
-        for name, fn in originals.items():
-            setattr(rendering, name, fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_chunks()
+        torch.cuda.synchronize()
+        wall_traced = time.perf_counter() - t0
 
     events = prof.events()
     # GPU-side spans of the record_function ranges, and the real device work.

@@ -48,9 +48,8 @@ def occ_state_from_jax(
     ``aabbs``, ``occs`` and ``binaries``), re-packed in the port's layout."""
     device = resolve_device(device)
     binaries = torch.from_numpy(np.array(state.binaries, dtype=bool)).to(device)
-    new = OccGridState(
+    return OccGridState(
         aabbs=torch.from_numpy(np.array(state.aabbs, dtype=np.float32)).to(device),
         occs=torch.from_numpy(np.array(state.occs, dtype=np.float32)).to(device),
-        binaries=binaries,
+        **estimator._grids(binaries),
     )
-    return estimator.set_binaries(new, binaries)

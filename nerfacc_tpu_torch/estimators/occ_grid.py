@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional, Sequence, Union
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -37,8 +37,8 @@ class OccGridState:
     aabbs: Tensor  # (levels, 6)
     occs: Tensor  # (levels * cells_per_lvl,)
     binaries: Tensor  # (levels, rx, ry, rz) bool
-    skip_grid: Optional[Tensor] = None  # (levels, rx/f, ry/f, rz/f) bool
-    binaries_packed: Optional[Tensor] = None  # (levels, rx, ry, ceil(rz/32)) int32
+    binaries_packed: Tensor  # (levels, rx, ry, ceil(rz/32)) int32
+    skip_grid: Tensor  # (levels, rx/f, ry/f, rz/f) bool
 
     def replace(self, **changes) -> "OccGridState":
         return dataclasses.replace(self, **changes)
@@ -100,23 +100,26 @@ class OccGridEstimator(AbstractEstimator):
         binaries = torch.zeros(
             (self.levels,) + self.resolution, dtype=torch.bool, device=device
         )
-        state = OccGridState(
+        return OccGridState(
             aabbs=torch.from_numpy(self._aabbs_np).to(device),
             occs=torch.zeros(
                 (self.levels * self.cells_per_lvl,), dtype=torch.float32, device=device
             ),
-            binaries=binaries,
+            **self._grids(binaries),
         )
-        return self.set_binaries(state, binaries)
 
     def set_binaries(self, state: OccGridState, binaries: Tensor) -> OccGridState:
         """Replace the binary grid and rebuild the skip grid and the packed
         copy (a stale skip grid or packed grid would answer for the old
         occupancy)."""
         binaries = binaries.to(device=state.binaries.device, dtype=torch.bool)
+        return state.replace(**self._grids(binaries))
+
+    def _grids(self, binaries: Tensor) -> dict:
+        """``binaries`` with its packed copy and its skip grid."""
         assert binaries.shape == (self.levels,) + self.resolution
-        return state.replace(
+        return dict(
             binaries=binaries,
-            skip_grid=build_skip_grid(binaries, self.skip_factor),
             binaries_packed=bitpack_grid(binaries),
+            skip_grid=build_skip_grid(binaries, self.skip_factor),
         )

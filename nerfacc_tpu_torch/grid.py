@@ -5,8 +5,8 @@ JAX package's vectorised two-stage form: every ray's marching ladder is
 materialised (closed form of ``t_{k+1} = t_k + clamp(t_k * cone, step,
 inf)``), each ladder midpoint is tested against the grid, and the valid
 samples are compacted to the front of each ray's row.  The occupancy test is
-kernel K1 (:func:`~nerfacc_tpu_torch.ops.occ_query.occupancy_query`)
-whenever the caller passes the bit-packed grid.
+kernel K1 (:func:`~nerfacc_tpu_torch.ops.occ_query.occupancy_query`) on
+the bit-packed grid.
 
 The macro-skip branch of ``traverse_grids`` and ``traverse_and_compact``
 (``grid.py:381-722``) serve the training path and come with it.
@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .ops.occ_query import _query_soa, occupancy_query
+from .ops.occ_query import occupancy_query
 
 Tensor = torch.Tensor
 
@@ -58,26 +58,6 @@ def _enlarge_aabb(aabb: Tensor, factor: float) -> Tensor:
     center = (aabb[:3] + aabb[3:]) / 2
     extent = (aabb[3:] - aabb[:3]) / 2
     return torch.cat([center - extent * factor, center + extent * factor])
-
-
-def _query_dispatch(
-    px: Tensor,
-    py: Tensor,
-    pz: Tensor,
-    data: Tensor,
-    base_aabb: Tensor,
-    packed: Optional[Tensor],
-    *,
-    mip_pad: int = 0,
-) -> Tensor:
-    """Occupancy query: kernel K1 on the packed grid when there is one, else
-    the plain gather on the bool grid."""
-    if packed is None:
-        return _query_soa(px, py, pz, data, base_aabb, mip_pad=mip_pad)[0]
-    return occupancy_query(
-        packed, base_aabb.contiguous(), px.contiguous(), py.contiguous(),
-        pz.contiguous(), rz=int(data.shape[-1]), mip_pad=mip_pad,
-    )
 
 
 def _march_ladder(
@@ -175,18 +155,19 @@ def traverse_grids(
     traverse_steps_limit: Optional[int] = None,
     rays_mask: Optional[Tensor] = None,
     *,
+    packed_grids: Tensor,
     max_lattice_steps: int = 1024,
     base_aabb: Optional[Tensor] = None,
-    packed_grids: Optional[Tensor] = None,
 ) -> TraversalResults:
     """Vectorised multi-level grid traversal (dense ladder).
 
     Outputs have the capacity ``traverse_steps_limit`` (default
     ``max_lattice_steps``) per ray with ``is_valid`` masking; invalid slots
     carry ``t_start == t_end == termination plane``, exact no-ops in the
-    density rendering path.  ``packed_grids`` (from
-    :func:`~nerfacc_tpu_torch.ops.occ_query.bitpack_grid`) routes the
-    occupancy test through kernel K1.
+    density rendering path.  ``packed_grids`` is ``binaries`` packed by
+    :func:`~nerfacc_tpu_torch.ops.occ_query.bitpack_grid` (an
+    ``OccGridState`` keeps it as ``binaries_packed``); the occupancy test is
+    kernel K1 on it.
     """
     n_rays = rays_o.shape[0]
     dtype, device = rays_o.dtype, rays_o.device
@@ -219,7 +200,9 @@ def traverse_grids(
     px = rays_o[:, 0:1] + t_mid * rays_d[:, 0:1]
     py = rays_o[:, 1:2] + t_mid * rays_d[:, 1:2]
     pz = rays_o[:, 2:3] + t_mid * rays_d[:, 2:3]
-    occ = _query_dispatch(px, py, pz, binaries, base_aabb, packed_grids)
+    occ = occupancy_query(
+        packed_grids, base_aabb.contiguous(), px, py, pz, rz=int(binaries.shape[-1])
+    )
 
     inside = (t_mid >= lower[:, None]) & (t_mid < far[:, None])
     valid = occ & inside & any_hit[:, None]

@@ -4,12 +4,10 @@ from .occ_query import (
     bitpack_grid,
     occupancy_query,
     occupancy_query_plain,
-    unpack_grid,
 )
 
 __all__ = [
     "bitpack_grid",
     "occupancy_query",
     "occupancy_query_plain",
-    "unpack_grid",
 ]

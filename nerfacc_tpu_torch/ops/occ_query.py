@@ -44,13 +44,6 @@ def bitpack_grid(binaries: Tensor) -> Tensor:
     return w.to(torch.int32).contiguous()
 
 
-def unpack_grid(packed: Tensor, rz: int) -> Tensor:
-    """Inverse of :func:`bitpack_grid`: ``(levels, rx, ry, rz)`` bool."""
-    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
-    bits = (packed[..., None] >> shifts) & 1  # arithmetic shift; & 1 keeps bit b
-    return bits.reshape(packed.shape[:-1] + (-1,))[..., :rz].to(torch.bool)
-
-
 def _normalized(px: Tensor, py: Tensor, pz: Tensor, base_aabb: Tensor):
     nx = (px - base_aabb[0]) / (base_aabb[3] - base_aabb[0]) - 0.5
     ny = (py - base_aabb[1]) / (base_aabb[4] - base_aabb[1]) - 0.5
@@ -87,30 +80,23 @@ def _query_soa(
     base_aabb: Tensor,
     mip_pad: int = 0,
 ) -> Tuple[Tensor, Tensor]:
-    """Mip-level lookup in a ``(levels, rx, ry, rz)`` grid (bool or float).
+    """Mip-level lookup in a ``(levels, rx, ry, rz)`` bool grid.
 
-    Port of ``nerfacc_tpu/grid.py:_query_soa``: returns ``(values,
-    selector)``, where ``selector`` marks points inside the outermost level
-    and ``mip_pad > 0`` unions the lookup over levels ``mip .. mip+pad``.
+    Port of ``nerfacc_tpu/grid.py:_query_soa`` for bool grids: returns
+    ``(occupied, selector)``, where ``selector`` marks points inside the
+    outermost level and ``mip_pad > 0`` unions the lookup over levels
+    ``mip .. mip+pad``.
     """
     levels, rx, ry, rz = data.shape
     nx, ny, nz = _normalized(px, py, pz, base_aabb)
     mip = _mip(nx, ny, nz)
     selector = mip < levels
     flat = data.reshape(-1)
-    out = None
+    out = torch.zeros(px.shape, dtype=torch.bool, device=px.device)
     for mip_p, ix, iy, iz in _cells(nx, ny, nz, mip, levels, (rx, ry, rz), mip_pad):
         idx = ((mip_p.long() * rx + ix) * ry + iy) * rz + iz
-        vals = flat[idx.reshape(-1)].reshape(px.shape)
-        if out is None:
-            out = vals
-        elif vals.dtype == torch.bool:
-            out = out | vals
-        else:
-            out = torch.maximum(out, vals)
-    if out.dtype == torch.bool:
-        return out & selector, selector
-    return out * selector, selector
+        out = out | flat[idx.reshape(-1)].reshape(px.shape)
+    return out & selector, selector
 
 
 def occupancy_query_plain(

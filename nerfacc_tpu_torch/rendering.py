@@ -12,6 +12,10 @@ Eager PyTorch has dynamic shapes, so each round's compaction capacity is
 ``n_alive * samples_per_round`` rather than one of the JAX package's fixed
 capacity buckets.  The result does not depend on it: no round can hold more
 valid samples than that.
+
+Each stage of a round runs inside a ``torch.profiler.record_function``
+range, so a profile attributes device time to the stage.  Without a running
+profiler a range costs a few microseconds of host time per round.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .estimators.occ_grid import OccGridEstimator, OccGridState
 from .grid import num_ladder_steps, traverse_grids
@@ -76,51 +81,60 @@ def occgrid_render_rays_test(
     depth = torch.zeros((n_rays, 1), dtype=dtype, device=device)
     total_samples = torch.zeros((), dtype=torch.int64, device=device)
 
+    n_slots = n_rays * samples_per_round
     iter_samples = 0
     while iter_samples < max_samples:
         n_alive = int(alive.sum())
         if n_alive == 0:
             break
-        res = traverse_grids(
-            rays_o,
-            rays_d,
-            state.binaries,
-            state.aabbs,
-            near_planes=near_planes,
-            far_planes=far_planes,
-            step_size=render_step_size,
-            cone_angle=cone_angle,
-            traverse_steps_limit=samples_per_round,
-            rays_mask=alive,
-            max_lattice_steps=window,
-            packed_grids=state.binaries_packed,
-        )
-        gather_idx, ray_indices, kept = compact_indices_from_counts(
-            res.num_valid, samples_per_round, n_alive * samples_per_round
-        )
-        t_starts = res.t_starts.reshape(-1)[gather_idx]
-        t_ends = res.t_ends.reshape(-1)[gather_idx]
-        t_ends = torch.where(kept, t_ends, t_starts)
+        with record_function("traverse_grids"):
+            res = traverse_grids(
+                rays_o,
+                rays_d,
+                state.binaries,
+                state.aabbs,
+                near_planes=near_planes,
+                far_planes=far_planes,
+                step_size=render_step_size,
+                cone_angle=cone_angle,
+                traverse_steps_limit=samples_per_round,
+                rays_mask=alive,
+                max_lattice_steps=window,
+                packed_grids=state.binaries_packed,
+            )
+        with record_function("compact_indices_from_counts"):
+            gather_idx, ray_indices, kept = compact_indices_from_counts(
+                res.num_valid, samples_per_round, n_alive * samples_per_round
+            )
+            t_starts = res.t_starts.reshape(-1)[gather_idx]
+            t_ends = res.t_ends.reshape(-1)[gather_idx]
+            t_ends = torch.where(kept, t_ends, t_starts)
 
         rgbs, sigmas = rgb_sigma_fn(t_starts, t_ends, ray_indices)
-        sigmas = torch.where(kept, sigmas, 0.0)
-        ri = ray_indices.long()
-        weights, _, alphas = render_weight_from_density(
-            t_starts,
-            t_ends,
-            sigmas,
-            ray_indices=ray_indices,
-            n_rays=n_rays,
-            prefix_trans=1.0 - opacity[ri, 0],
-        )
-        if alpha_thre > 0:
-            weights = torch.where(alphas >= alpha_thre, weights, 0.0)
+        with record_function("render_weight_from_density"):
+            # Weights on the traversal's (n_rays, samples_per_round) rows:
+            # each ray's transmittance is a cumsum over its own row, so no
+            # rounding carries from one ray into the next.  Padding slots go
+            # to a spare slot; empty row slots have t_start == t_end.
+            slot = torch.where(kept, gather_idx, n_slots)
+            sigma_rows = sigmas.new_zeros(n_slots + 1).scatter_(0, slot, sigmas)
+            weights, _, alphas = render_weight_from_density(
+                res.t_starts,
+                res.t_ends,
+                sigma_rows[:n_slots].view(n_rays, samples_per_round),
+                prefix_trans=1.0 - opacity,
+            )
+            weights = torch.where(kept, weights.reshape(-1)[gather_idx], 0.0)
+            if alpha_thre > 0:
+                alphas = alphas.reshape(-1)[gather_idx]
+                weights = torch.where(alphas >= alpha_thre, weights, 0.0)
 
-        rgb = rgb + accumulate_along_rays(weights, rgbs, ray_indices, n_rays)
-        opacity = opacity + accumulate_along_rays(weights, None, ray_indices, n_rays)
-        depth = depth + accumulate_along_rays(
-            weights * (t_starts + t_ends) / 2.0, None, ray_indices, n_rays
-        )
+        with record_function("accumulate_along_rays"):
+            rgb = rgb + accumulate_along_rays(weights, rgbs, ray_indices, n_rays)
+            opacity = opacity + accumulate_along_rays(weights, None, ray_indices, n_rays)
+            depth = depth + accumulate_along_rays(
+                weights * (t_starts + t_ends) / 2.0, None, ray_indices, n_rays
+            )
         near_planes = res.termination_planes
         alive = (
             alive

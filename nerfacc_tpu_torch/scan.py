@@ -9,7 +9,9 @@ not inherit rounding error from the segments before it:
   total at each segment's start.  In float32 that difference cancels
   catastrophically once the running total is large (a 4096-ray round holds
   ~131k samples); float64's 53-bit mantissa leaves the float32 result exact
-  to its last bit or two.
+  to its last bit or two.  (The inference renderer has its samples in
+  ``(n_rays, samples_per_round)`` rows and scans each row with the batched
+  form instead.)
 - products cannot subtract, and a zero anywhere would poison a division, so
   they run a log-depth segmented scan (Hillis-Steele over the (flag, value)
   monoid, the same monoid as the JAX package's ``associative_scan``): values

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+from nerfacc_tpu_torch.grid import traverse_grids
 from nerfacc_tpu_torch.ops.occ_query import (
     bitpack_grid,
     occupancy_query,
@@ -65,6 +67,32 @@ def test_kernel_matches_plain_version_on_the_card(cuda, levels, res):
         # Exact: the kernel does the plain version's float arithmetic.
         assert torch.equal(out, plain)
         assert 0 < int(out.sum()) < out.numel()
+
+
+@pytest.mark.cuda
+def test_traversal_queries_through_the_kernel(cuda):
+    est = OccGridEstimator(roi_aabb=[-1.0] * 3 + [1.0] * 3, resolution=32, levels=2)
+    rng = np.random.default_rng(3)
+    binaries = torch.from_numpy(rng.random((2, 32, 32, 32)) < 0.2)
+    gpu = est.set_binaries(est.init(cuda), binaries)
+    cpu = est.set_binaries(est.init("cpu"), binaries)
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = -2.5 * d
+    kw = dict(step_size=1e-2, traverse_steps_limit=32, max_lattice_steps=256)
+    before = occupancy_query.launches
+    got = traverse_grids(
+        torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda), gpu.binaries,
+        gpu.aabbs, packed_grids=gpu.binaries_packed, **kw,
+    )
+    assert occupancy_query.launches == before + 1
+    want = traverse_grids(
+        torch.from_numpy(o), torch.from_numpy(d), cpu.binaries, cpu.aabbs,
+        packed_grids=cpu.binaries_packed, **kw,
+    )
+    # Exact: the query is bit-exact and the rest is the same float32 math.
+    assert torch.equal(got.num_valid.cpu(), want.num_valid)
+    assert 0 < int(want.num_valid.sum())
 
 
 @pytest.mark.cuda

@@ -54,18 +54,18 @@ def test_traverse_grids_matches_jax(levels, cone_angle):
         near_planes=jnp.asarray(near), far_planes=jnp.full((n,), 3.5),
         rays_mask=jnp.asarray(mask), **kw,
     )
-    for packed in (None, ts.binaries_packed):  # plain gather and the K1 path
-        tr = tgrid.traverse_grids(
-            torch.from_numpy(o), torch.from_numpy(d), ts.binaries, ts.aabbs,
-            near_planes=torch.from_numpy(near), far_planes=torch.full((n,), 3.5),
-            rays_mask=torch.from_numpy(mask), packed_grids=packed, **kw,
+    # On CPU tensors K1's wrapper runs its plain version.
+    tr = tgrid.traverse_grids(
+        torch.from_numpy(o), torch.from_numpy(d), ts.binaries, ts.aabbs,
+        near_planes=torch.from_numpy(near), far_planes=torch.full((n,), 3.5),
+        rays_mask=torch.from_numpy(mask), packed_grids=ts.binaries_packed, **kw,
+    )
+    np.testing.assert_array_equal(tr.num_valid.numpy(), np.asarray(jr.num_valid))
+    np.testing.assert_array_equal(tr.is_valid.numpy(), np.asarray(jr.is_valid))
+    for name in ("t_starts", "t_ends", "termination_planes", "far_effective"):
+        np.testing.assert_allclose(
+            getattr(tr, name).numpy(), np.asarray(getattr(jr, name)), rtol=0, atol=1e-6
         )
-        np.testing.assert_array_equal(tr.num_valid.numpy(), np.asarray(jr.num_valid))
-        np.testing.assert_array_equal(tr.is_valid.numpy(), np.asarray(jr.is_valid))
-        for name in ("t_starts", "t_ends", "termination_planes", "far_effective"):
-            np.testing.assert_allclose(
-                getattr(tr, name).numpy(), np.asarray(getattr(jr, name)), rtol=0, atol=1e-6
-            )
     assert 0 < int(tr.num_valid.sum())
     assert int(tr.num_valid[~torch.from_numpy(mask)].sum()) == 0
 

@@ -18,10 +18,16 @@ from nerfacc_tpu_torch.ops.occ_query import (
     bitpack_grid,
     occupancy_query,
     occupancy_query_plain,
-    unpack_grid,
 )
 
 AABB = np.array([-1.5, -1.0, -2.0, 1.5, 1.0, 2.0], np.float32)
+
+
+def unpack_grid(packed, rz):
+    """Inverse of ``bitpack_grid``: ``(levels, rx, ry, rz)`` bool."""
+    shifts = torch.arange(32, dtype=torch.int32)
+    bits = (packed[..., None] >> shifts) & 1  # arithmetic shift; & 1 keeps bit b
+    return bits.reshape(packed.shape[:-1] + (-1,))[..., :rz].to(torch.bool)
 
 
 def adversarial_points(levels, res, rng, n_random=3000):
