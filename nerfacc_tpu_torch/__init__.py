@@ -8,9 +8,11 @@ where every kernel wrapper uses its plain PyTorch version.  On a CUDA
 tensor a wrapper launches its hand-written kernel (``csrc/``), built with
 ``nvcc`` at first use into ``build/nerfacc_tpu_torch/``.
 
-This slice covers the occupancy-grid inference renderer
-(:func:`~nerfacc_tpu_torch.rendering.occgrid_render_rays_test`) with the
-NGP field; the training path follows in later slices.
+Ported so far: the occupancy-grid inference renderer
+(:func:`~nerfacc_tpu_torch.rendering.occgrid_render_rays_test`) and the
+NGP-occ train step (:func:`~nerfacc_tpu_torch.rendering.occgrid_render_rays`
+with the NGP field's backward and the occupancy update
+:meth:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator._update`).
 """
 
 __version__ = "0.1.0"

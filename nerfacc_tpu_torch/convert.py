@@ -45,7 +45,8 @@ def occ_state_from_jax(
     device: Union[str, torch.device] = "cuda",
 ) -> OccGridState:
     """The port's :class:`OccGridState` from a JAX ``OccGridState`` (its
-    ``aabbs``, ``occs`` and ``binaries``), re-packed in the port's layout."""
+    ``aabbs``, ``occs`` and ``binaries``); the skip grid and both packed
+    grids are rebuilt in the port's layout."""
     device = resolve_device(device)
     binaries = torch.from_numpy(np.array(state.binaries, dtype=bool)).to(device)
     return OccGridState(

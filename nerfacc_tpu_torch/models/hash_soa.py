@@ -1,4 +1,4 @@
-"""Corner-fused hash-grid encoding (forward).
+"""Corner-fused hash-grid encoding.
 
 Port of ``nerfacc_tpu/models/hash_soa.py:35-48,164-459``
 (``HashGridEncoderFused`` with ``paired_levels=0``).  A table row is keyed by
@@ -7,8 +7,14 @@ a sample-level lookup is one row gather plus a trilinear combine.  The table
 is one ``(L * T, 8 * F)`` parameter, laid out as the JAX package's, so JAX
 tables load row for row.
 
-The gradient to the table (the TPU's factor kernel) comes with the training
-slice.
+With ``table_grad="factor"`` and 128-wide rows (``F = 16``) the lookup is
+:func:`~nerfacc_tpu_torch.ops.table_grad.hash_lookup_combine3`, whose
+backward sends the table gradient through kernel K2 (bf16 compute) or K4-w3
+(float32) and gives the sample positions zero gradient, as the JAX
+package's factor path does.  Otherwise (``"scatter"``, or other widths)
+autograd differentiates the gather.  ``compute_dtype=torch.bfloat16`` casts
+the offset table and the corner weights to bf16 for the combine; the
+weights themselves are computed in float32.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.table_grad import ROW_WIDTH, corner_weights, hash_lookup_combine3
 
 Tensor = torch.Tensor
 
@@ -62,11 +69,19 @@ class HashGridEncoderFused(nn.Module):
         base_resolution: int = 16,
         max_resolution: int = 4096,
         *,
+        compute_dtype: Optional[torch.dtype] = None,
+        table_grad: str = "factor",
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
+        if table_grad not in ("factor", "scatter"):
+            raise ValueError(f"table_grad must be 'factor' or 'scatter', got {table_grad!r}")
+        if compute_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype} not supported")
+        self.compute_dtype = None if compute_dtype == torch.float32 else compute_dtype
+        self.use_factor_grad = table_grad == "factor" and 8 * n_features_per_level == ROW_WIDTH
         self.n_levels = n_levels
         self.n_features_per_level = n_features_per_level
         self.table_size = 1 << log2_hashmap_size
@@ -76,6 +91,16 @@ class HashGridEncoderFused(nn.Module):
         table = torch.empty((rows, 8 * n_features_per_level), dtype=torch.float32)
         table.uniform_(0.0, 2e-4, generator=generator)
         self.table = nn.Parameter(table.to(device))
+        # Per-level constants on the device, so a lookup copies nothing from
+        # the host (a host-to-device copy would wait for the queued work).
+        level_consts = dict(
+            _res_f=torch.tensor(self.resolutions, dtype=torch.float32)[:, None],
+            _res_i=torch.tensor(self.resolutions, dtype=torch.int64)[:, None],
+            _dense=torch.tensor([dense_level(r, self.table_size) for r in self.resolutions])[:, None],
+            _level_offset=torch.arange(n_levels, dtype=torch.int64)[:, None] * self.table_size,
+        )
+        for name, value in level_consts.items():
+            self.register_buffer(name, value.to(device), persistent=False)
 
     @property
     def latent_dim(self) -> int:
@@ -84,8 +109,8 @@ class HashGridEncoderFused(nn.Module):
     def cell_indices(self, u: Tensor):
         """Table rows ``(L, n)`` int64 and fractional cell weights
         ``(wx, wy, wz)``, each ``(L, n)``, for ``n`` points ``u (n, 3)``."""
-        L, T = self.n_levels, self.table_size
-        res = torch.tensor(self.resolutions, dtype=u.dtype, device=u.device)[:, None]
+        T = self.table_size
+        res = self._res_f.to(u.dtype)
         xl = u[None, :, 0] * res
         yl = u[None, :, 1] * res
         zl = u[None, :, 2] * res
@@ -94,15 +119,11 @@ class HashGridEncoderFused(nn.Module):
         # int64 keeps the low bits that JAX's int32/uint32 arithmetic keeps
         # after wrapping; both sides only use `& (T - 1)` of these values.
         cx, cy, cz = c0x.long(), c0y.long(), c0z.long()
-        res_i = torch.tensor(self.resolutions, dtype=torch.int64, device=u.device)[:, None]
-        dense = torch.tensor(
-            [dense_level(r, T) for r in self.resolutions], device=u.device
-        )[:, None]
+        res_i = self._res_i
         dense_idx = (cx * res_i + cy) * res_i + cz
         h = (cx * _PRIMES[0]) ^ (cy * _PRIMES[1]) ^ (cz * _PRIMES[2])
-        idx = torch.where(dense, dense_idx, h) & (T - 1)
-        level_offset = torch.arange(L, device=u.device)[:, None] * T
-        return idx + level_offset, (wx, wy, wz)
+        idx = torch.where(self._dense, dense_idx, h) & (T - 1)
+        return idx + self._level_offset, (wx, wy, wz)
 
     def forward(self, x: Tensor) -> Tensor:
         L, F = self.n_levels, self.n_features_per_level
@@ -110,18 +131,16 @@ class HashGridEncoderFused(nn.Module):
         u = x.reshape(-1, 3)
         n = u.shape[0]
         rows, (wx, wy, wz) = self.cell_indices(u)
-        # Gather first, then the -1e-4 offset: the same values as offsetting
-        # the whole table, without a table-sized temporary per call.
-        g = self.table[rows.reshape(-1)] - 1e-4  # (L*n, 8F)
-        w = torch.stack(
-            [
-                (wx if dx else 1.0 - wx) * (wy if dy else 1.0 - wy) * (wz if dz else 1.0 - wz)
-                for dx in (0, 1)
-                for dy in (0, 1)
-                for dz in (0, 1)
-            ],
-            dim=-1,
-        )  # (L, n, 8), corner c = 4 dx + 2 dy + dz
-        out = torch.einsum("kc,kcf->kf", w.reshape(L * n, 8), g.reshape(L * n, 8, F))
+        rows, wx, wy, wz = rows.reshape(-1), wx.reshape(-1), wy.reshape(-1), wz.reshape(-1)
+        if self.use_factor_grad:
+            out = hash_lookup_combine3(
+                self.table, rows, wx, wy, wz, offset=1e-4, compute_dtype=self.compute_dtype
+            )
+        else:
+            t = self.table - 1e-4
+            if self.compute_dtype is not None:
+                t = t.to(self.compute_dtype)
+            w = corner_weights(wx, wy, wz).to(t.dtype)  # (L*n, 8), corner c = 4 dx + 2 dy + dz
+            out = torch.einsum("kc,kcf->kf", w, t[rows].view(L * n, 8, F))
         out = out.reshape(L, n, F).transpose(0, 1)  # (n, L, F)
         return out.reshape(batch_shape + (L * F,))

@@ -1,15 +1,18 @@
-"""Instant-NGP radiance field: fused hash grid plus two small MLPs (forward).
+"""Instant-NGP radiance field: fused hash grid plus two small MLPs.
 
-Port of ``nerfacc_tpu/models/ngp.py:40-254`` for the fused encoder in
-float32.  Parameters are initialised as flax initialises them (``lecun_normal``
+Port of ``nerfacc_tpu/models/ngp.py:39-254`` for the fused encoder.
+Parameters are initialised as flax initialises them (``lecun_normal``
 kernels, i.e. a normal truncated at two standard deviations; zero biases;
 the table uniform in ``[0, 2e-4)``) from a ``torch.Generator`` on the CPU, so
 one seed gives the same weights on every device.
 
-The MLPs are plain ``nn.Linear`` layers, whose float32 products run in full
-float32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False
-(PyTorch's default, and what ``chip_smoke.py`` sets); TF32 would keep only
-about three decimal digits.  bf16 compute and the gradient come later.
+The MLPs are ``nn.Linear`` layers with float32 parameters.  With
+``compute_dtype=torch.bfloat16`` the encoder's combine and both MLPs
+compute in bf16 from those parameters, as flax ``nn.Dense(dtype=bf16)``
+does, and the density and colour activations are applied in float32.  In
+float32, products run in full float32 only while
+``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default, and
+what ``chip_smoke.py`` sets); TF32 would keep about three decimal digits.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -27,9 +31,21 @@ from .hash_soa import HashGridEncoderFused
 Tensor = torch.Tensor
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(x.clamp(max=15.0))
+
+
 def trunc_exp(x: Tensor) -> Tensor:
-    """exp whose gradient clamps its input at 15 (forward: plain exp)."""
-    return torch.exp(x)
+    """exp whose gradient clamps its input at 15 (``ngp.py:39-53``)."""
+    return _TruncExp.apply(x)
 
 
 def contract_to_unisphere(x: Tensor, aabb: Tensor, eps: float = 1e-6) -> Tensor:
@@ -74,11 +90,14 @@ class NGPRadianceField(nn.Module):
         log2_hashmap_size: int = 19,
         mlp_width: int = 64,
         *,
+        compute_dtype: Optional[torch.dtype] = None,
+        table_grad: str = "factor",
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
+        self.compute_dtype = None if compute_dtype == torch.float32 else compute_dtype
         self.use_viewdirs = use_viewdirs
         self.unbounded = unbounded
         self.geo_feat_dim = geo_feat_dim
@@ -95,6 +114,8 @@ class NGPRadianceField(nn.Module):
             log2_hashmap_size=log2_hashmap_size - 3,
             base_resolution=base_resolution,
             max_resolution=max_resolution,
+            compute_dtype=compute_dtype,
+            table_grad=table_grad,
             device=device,
             generator=generator,
         )
@@ -124,19 +145,33 @@ class NGPRadianceField(nn.Module):
         else:
             u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
         selector = ((u > 0.0) & (u < 1.0)).all(dim=-1)
-        h = self.mlp_base(self.encoder(u))
+        h = self._mlp(self.mlp_base, self.encoder(u))
         density_before, feat = h[..., :1], h[..., 1:]
-        density = trunc_exp(density_before - 1) * selector[..., None]
+        density = trunc_exp(density_before.to(torch.float32) - 1) * selector[..., None]
         if return_feat:
             return density, feat
         return density
 
+    def _mlp(self, seq: nn.Sequential, h: Tensor) -> Tensor:
+        """``seq(h)``, with each layer in the compute dtype if one is set."""
+        cdt = self.compute_dtype
+        if cdt is None:
+            return seq(h)
+        h = h.to(cdt)
+        for layer in seq:
+            if isinstance(layer, nn.Linear):
+                h = F.linear(h, layer.weight.to(cdt), layer.bias.to(cdt))
+            else:
+                h = layer(h)
+        return h
+
     def _query_rgb(self, direction: Optional[Tensor], embedding: Tensor) -> Tensor:
         if self.use_viewdirs and direction is not None:
-            h = torch.cat([spherical_harmonics_deg4(direction), embedding], dim=-1)
+            sh = spherical_harmonics_deg4(direction).to(embedding.dtype)
+            h = torch.cat([sh, embedding], dim=-1)
         else:
             h = embedding
-        return torch.sigmoid(self.mlp_head(h))
+        return torch.sigmoid(self._mlp(self.mlp_head, h).to(torch.float32))
 
     def forward(self, positions: Tensor, directions: Optional[Tensor] = None):
         density, embedding = self.query_density(positions, return_feat=True)

@@ -1,6 +1,15 @@
-"""Occupancy-grid inference renderer.
+"""Occupancy-grid renderers: the training renderer and the inference
+renderer.
 
-Port of ``nerfacc_tpu/rendering.py:38-53,281-416``: the iterative alive-ray
+Port of ``nerfacc_tpu/rendering.py:38-53,101-278,281-416``.
+
+:func:`occgrid_render_rays` is the training path: one fused traversal and
+compaction into a fixed sample capacity
+(:func:`~nerfacc_tpu_torch.grid.traverse_and_compact`), the field on the
+flat samples, and differentiable volume rendering with the sorted
+``seg_bounds`` accumulation.
+
+:func:`occgrid_render_rays_test` is the iterative alive-ray
 renderer (Instant-NGP style).  Each round traverses a bounded window of
 ``samples_per_round`` samples per alive ray, compacts the valid samples,
 queries the field on them, and accumulates colour, opacity and depth with
@@ -28,7 +37,7 @@ from torch.profiler import record_function
 from .estimators.occ_grid import OccGridEstimator, OccGridState
 from .grid import num_ladder_steps, traverse_grids
 from .pack import compact_indices_from_counts
-from .volrend import accumulate_along_rays, render_weight_from_density
+from .volrend import accumulate_along_rays, render_weight_from_density, rendering
 
 Tensor = torch.Tensor
 
@@ -40,6 +49,74 @@ def gather_ray_od(
     gather."""
     g = torch.cat([rays_o, rays_d], dim=-1)[ray_indices.long()]
     return g[:, :3], g[:, 3:]
+
+
+def occgrid_render_rays(
+    rgb_sigma_fn: Callable,  # (t_starts, t_ends, ray_indices) -> (rgb, sigma)
+    sigma_fn: Optional[Callable],
+    estimator: OccGridEstimator,
+    state: OccGridState,
+    rays_o: Tensor,
+    rays_d: Tensor,
+    *,
+    near_plane: float = 0.0,
+    far_plane: float = 1e10,
+    render_step_size: float = 1e-3,
+    render_bkgd: Optional[Tensor] = None,
+    cone_angle: float = 0.0,
+    alpha_thre: float = 0.0,
+    stratified: bool = False,
+    jitter: Optional[Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    max_samples_per_ray: Optional[int] = None,
+    sample_capacity: Optional[int] = None,
+    max_macro_segments: int = 24,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, dict]:
+    """Render a ray batch for training (``rendering.py:101-278``).
+
+    Returns ``(colors (n,3), opacities (n,1), depths (n,1),
+    n_rendering_samples, extras)``, differentiable in the field's
+    parameters; ``extras`` adds ``kept``, ``ray_indices`` and
+    ``macro_truncated_frac`` to :func:`~nerfacc_tpu_torch.volrend.rendering`'s.
+    With ``stratified``, each ray's near plane moves by ``jitter *
+    render_step_size`` (``jitter`` an ``(n_rays,)`` tensor in ``[0, 1)``, or
+    drawn from ``generator``).  As in the JAX package, ``sigma_fn`` is only
+    used for the visibility filter at ``alpha_thre > 0``, which is not
+    ported yet (nor is ``refilter_capacity``).
+    """
+    if alpha_thre > 0.0 and sigma_fn is not None:
+        raise NotImplementedError(
+            "occgrid_render_rays: the alpha_thre > 0 visibility filter is not ported yet"
+        )
+    n_rays = rays_o.shape[0]
+    with record_function("traverse_and_compact"):
+        cs = estimator.compact_samples(
+            state, rays_o, rays_d, near_plane=near_plane, far_plane=far_plane,
+            render_step_size=render_step_size, stratified=stratified,
+            cone_angle=cone_angle, jitter=jitter, generator=generator,
+            max_samples=max_samples_per_ray, sample_capacity=sample_capacity,
+            max_macro_segments=max_macro_segments,
+        )
+    # The field runs in its own range, before rendering, so that a profile
+    # tells the two apart.
+    with record_function("field_forward"):
+        field_out = rgb_sigma_fn(cs.t_starts, cs.t_ends, cs.ray_indices)
+    with record_function("rendering"):
+        colors, opacities, depths, extras = rendering(
+            cs.t_starts,
+            cs.t_ends,
+            ray_indices=cs.ray_indices,
+            n_rays=n_rays,
+            rgb_sigma_fn=lambda *_: field_out,
+            render_bkgd=render_bkgd,
+            is_valid=cs.kept,
+            seg_bounds=(cs.seg_starts, cs.seg_counts),
+        )
+    extras = dict(extras)
+    extras["kept"] = cs.kept
+    extras["ray_indices"] = cs.ray_indices
+    extras["macro_truncated_frac"] = cs.macro_truncated.float().mean()
+    return colors, opacities, depths, cs.kept.sum(), extras
 
 
 @torch.no_grad()

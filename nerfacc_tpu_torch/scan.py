@@ -1,4 +1,4 @@
-"""Segmented inclusive/exclusive sums and products (forward).
+"""Segmented inclusive/exclusive sums and products.
 
 Port of ``nerfacc_tpu/scan.py``.  Batched inputs scan along the last axis
 with ``torch.cumsum``/``cumprod``.  Flat inputs are segmented by sorted
@@ -17,7 +17,10 @@ not inherit rounding error from the segments before it:
   monoid, the same monoid as the JAX package's ``associative_scan``): values
   from different segments are never combined.
 
-Backward passes wait for the training slice.
+Gradients come from autograd through these forms; for the flat sums they
+are the reversed segmented sums the JAX package writes by hand
+(``scan.py:142-179``).  The exact gradient of a product at a zero
+(``scan.py:182-190``) is not ported.
 """
 
 from __future__ import annotations

@@ -110,3 +110,65 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         occupancy_query(packed, aabb, p[0], p[1], p[2], rz=64)
     with pytest.raises(ValueError, match="one device"):
         occupancy_query(packed.cpu(), aabb, p[0], p[1], p[2], rz=32)
+
+
+def _sorted_factors(rng, n, n_rows, device):
+    """Rows with a dense pile-up (a quarter of the samples on 64 rows, like
+    the coarse level at the training shape), weights in [0, 1] and mixed-scale
+    cotangents, sorted by row."""
+    idx = np.concatenate([rng.integers(0, 64, n // 4), rng.integers(0, n_rows, n - n // 4)])
+    idx = torch.from_numpy(idx.astype(np.int32)).to(device)
+    sorted_idx, perm = torch.sort(idx)
+    w = torch.from_numpy(rng.random((3, n), dtype=np.float32)).to(device)
+    scale = torch.from_numpy(rng.choice([1e-3, 1.0], (n, 1)).astype(np.float32)).to(device)
+    dout = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32)).to(device) * scale
+    return sorted_idx, perm, w, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_rows", [(1, 64), (1000, 4096), (300_000, 16384)])
+def test_table_grad_kernels_match_plain_versions_on_the_card(cuda, n, n_rows):
+    from nerfacc_tpu_torch.ops.table_grad import (
+        quantize_u10,
+        table_grad_u10,
+        table_grad_u10_plain,
+        table_grad_w3,
+        table_grad_w3_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    sorted_idx, perm, w, dout = _sorted_factors(rng, n, n_rows, cuda)
+    wq = quantize_u10(*w)
+    dout_bf = dout.to(torch.bfloat16)
+    before = table_grad_u10.launches, table_grad_w3.launches
+    k2 = table_grad_u10(sorted_idx, perm, wq, dout_bf, n_rows)
+    k4 = table_grad_w3(sorted_idx, perm, *w, dout, n_rows)
+    assert (table_grad_u10.launches, table_grad_w3.launches) == (before[0] + 1, before[1] + 1)
+    p2 = table_grad_u10_plain(sorted_idx, perm, wq, dout_bf, n_rows)
+    p4 = table_grad_w3_plain(sorted_idx, perm, *w, dout, n_rows)
+    torch.cuda.synchronize()
+    # The same terms summed in float32 in another order (atomics in both);
+    # rows that no sample names stay zero.
+    untouched = torch.bincount(sorted_idx.long(), minlength=n_rows) == 0
+    for got, want in ((k2, p2), (k4, p4)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+        assert not got[untouched].any()
+
+
+@pytest.mark.cuda
+def test_cell_max_kernel_is_exact_on_the_card(cuda):
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, cell_max_plain
+
+    rng = np.random.default_rng(5)
+    n_cells = 1 << 21
+    ids = torch.from_numpy(rng.integers(0, n_cells, 1 << 20).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random(1 << 20, dtype=np.float32) * 4e-3).to(cuda)
+    vals[:3] = torch.tensor([0.0, -0.0, 1e-30])
+    before = cell_max.launches
+    got = cell_max(ids, vals, n_cells)
+    assert cell_max.launches == before + 1
+    library = torch.full((n_cells,), -1.0, device=cuda).scatter_reduce_(0, ids.long(), vals, "amax")
+    torch.cuda.synchronize()
+    assert torch.equal(got, cell_max_plain(ids, vals, n_cells))
+    assert torch.equal(got, library)
