@@ -7,12 +7,12 @@ a sample-level lookup is one row gather plus a trilinear combine.  The table
 is one ``(L * T, 8 * F)`` parameter, laid out as the JAX package's, so JAX
 tables load row for row.
 
-With ``table_grad="factor"`` and 128-wide rows (``F = 16``) the lookup is
+With 128-wide rows (``F = 16``) the lookup is
 :func:`~nerfacc_tpu_torch.ops.table_grad.hash_lookup_combine3`, whose
 backward sends the table gradient through kernel K2 (bf16 compute) or K4-w3
 (float32) and gives the sample positions zero gradient, as the JAX
-package's factor path does.  Otherwise (``"scatter"``, or other widths)
-autograd differentiates the gather.  ``compute_dtype=torch.bfloat16`` casts
+package's ``table_grad="factor"`` path does.  Other widths have no kernel,
+and autograd differentiates the gather.  ``compute_dtype=torch.bfloat16`` casts
 the offset table and the corner weights to bf16 for the combine; the
 weights themselves are computed in float32.
 """
@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.table_grad import ROW_WIDTH, corner_weights, hash_lookup_combine3
+from ..ops.table_grad import ROW_WIDTH, gather_combine, hash_lookup_combine3
 
 Tensor = torch.Tensor
 
@@ -70,18 +70,15 @@ class HashGridEncoderFused(nn.Module):
         max_resolution: int = 4096,
         *,
         compute_dtype: Optional[torch.dtype] = None,
-        table_grad: str = "factor",
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        if table_grad not in ("factor", "scatter"):
-            raise ValueError(f"table_grad must be 'factor' or 'scatter', got {table_grad!r}")
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {compute_dtype} not supported")
         self.compute_dtype = None if compute_dtype == torch.float32 else compute_dtype
-        self.use_factor_grad = table_grad == "factor" and 8 * n_features_per_level == ROW_WIDTH
+        self.use_factor_grad = 8 * n_features_per_level == ROW_WIDTH
         self.n_levels = n_levels
         self.n_features_per_level = n_features_per_level
         self.table_size = 1 << log2_hashmap_size
@@ -132,15 +129,7 @@ class HashGridEncoderFused(nn.Module):
         n = u.shape[0]
         rows, (wx, wy, wz) = self.cell_indices(u)
         rows, wx, wy, wz = rows.reshape(-1), wx.reshape(-1), wy.reshape(-1), wz.reshape(-1)
-        if self.use_factor_grad:
-            out = hash_lookup_combine3(
-                self.table, rows, wx, wy, wz, offset=1e-4, compute_dtype=self.compute_dtype
-            )
-        else:
-            t = self.table - 1e-4
-            if self.compute_dtype is not None:
-                t = t.to(self.compute_dtype)
-            w = corner_weights(wx, wy, wz).to(t.dtype)  # (L*n, 8), corner c = 4 dx + 2 dy + dz
-            out = torch.einsum("kc,kcf->kf", w, t[rows].view(L * n, 8, F))
+        lookup = hash_lookup_combine3 if self.use_factor_grad else gather_combine
+        out = lookup(self.table, rows, wx, wy, wz, 1e-4, self.compute_dtype)
         out = out.reshape(L, n, F).transpose(0, 1)  # (n, L, F)
         return out.reshape(batch_shape + (L * F,))

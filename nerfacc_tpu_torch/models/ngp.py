@@ -91,7 +91,6 @@ class NGPRadianceField(nn.Module):
         mlp_width: int = 64,
         *,
         compute_dtype: Optional[torch.dtype] = None,
-        table_grad: str = "factor",
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
@@ -115,7 +114,6 @@ class NGPRadianceField(nn.Module):
             base_resolution=base_resolution,
             max_resolution=max_resolution,
             compute_dtype=compute_dtype,
-            table_grad=table_grad,
             device=device,
             generator=generator,
         )

@@ -232,15 +232,26 @@ def table_grad_factors(
     raise ValueError(f"table_grad_factors: dout must be bf16 or float32, got {dout.dtype}")
 
 
+def gather_combine(
+    table: Tensor, idx: Tensor, wx: Tensor, wy: Tensor, wz: Tensor,
+    offset: float, compute_dtype: Optional[torch.dtype],
+) -> Tensor:
+    """Rows ``idx`` of ``table - offset`` (cast to ``compute_dtype`` if
+    given), each ``8 * F`` wide, combined over their 8 corners with the
+    trilinear weights of ``(wx, wy, wz)``: ``(N, F)``.  Autograd
+    differentiates it as written; :func:`hash_lookup_combine3` gives it the
+    factor backward."""
+    t = table - offset
+    if compute_dtype is not None:
+        t = t.to(compute_dtype)
+    w = corner_weights(wx, wy, wz).to(t.dtype)
+    return torch.einsum("kc,kcf->kf", w, t[idx].view(-1, 8, table.shape[1] // 8))
+
+
 class _LookupCombine3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx, wx, wy, wz, offset, compute_dtype):
-        t = table - offset
-        if compute_dtype is not None:
-            t = t.to(compute_dtype)
-        w = corner_weights(wx, wy, wz).to(t.dtype)
-        g = t[idx]  # (N, 128)
-        out = torch.einsum("kc,kcf->kf", w, g.view(-1, 8, table.shape[1] // 8))
+        out = gather_combine(table, idx, wx, wy, wz, offset, compute_dtype)
         ctx.save_for_backward(idx, wx, wy, wz)
         ctx.n_rows = table.shape[0]
         return out
