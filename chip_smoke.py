@@ -15,20 +15,31 @@ Phases (any failure exits non-zero):
    where the device time goes and how long the device sits idle.
 4. card against CPU: a 64x64 crop of the same view through the port on the
    card and on the CPU, with the same weights.
-5. kernels K2 (table gradient, bf16), K4-w3 (table gradient, float32) and
-   K3 (per-cell max) against their plain versions on the card, at the
-   training shapes; timings beside each kernel's bound.
+5. the table-gradient kernels against their plain versions on the card, at
+   the training shapes, with timings beside each kernel's bound: K2 (bf16),
+   K4 (w3 in float32 and bf16, w8 in bf16 and float32) and K5 (bf16) at
+   2^21 sample-levels over 4 x 2^15 rows, K6 at 2^19 samples x 8 fetches
+   over 2 x 2^16 rows, and K3 (per-cell max) at 2^20 draws.
 6. train: the NGP-occ train step of ``bench.py:59-294`` at its full width
-   (16384 rays, 2^19 samples, bf16 compute), 3 warm-up steps, 30 timed
-   steps and 8 timed occupancy updates; samples/s, step and update ms, the
-   launches of K1, K2 and K3 on that path, peak memory, first and last loss;
-   K1 against its plain version on one step's skip probes and lattice
-   queries; then a few steps under torch.profiler.
-7. card against CPU: the traversal of 1024 rays at 2^15 and 2^17 slots
-   (every field), then one train step and one occupancy update at 1024 rays
-   and 2^15 samples, full field width, same weights, jitter and draws: the
-   kept samples and the grid must agree, and at float32 (K4-w3) and bf16
-   (K2) the loss, the table gradient and the parameters after Adam.
+   (16384 rays, 2^19 samples, bf16 compute, the fused encoder L4 x F16),
+   3 warm-up steps, 30 timed steps and 8 timed occupancy updates;
+   samples/s, step and update ms, the launches of K1, K2 and K3 on that
+   path, peak memory, first and last loss; K1 against its plain version on
+   one step's skip probes and lattice queries; then a few steps under
+   torch.profiler.
+7. train, tcnn shape: the same step with ``BENCH_ENCODER=grouped
+   BENCH_LEVELS=16 BENCH_FEATS=2 BENCH_LOG2T=19`` (the grouped encoder, a
+   (2 x 2^16, 128) table, 8 fetches a sample), the same counts and prints,
+   with the launches of K1, K6 and K3.
+8. card against CPU: the traversal of 1024 rays at 2^15 and 2^17 slots
+   (every field), then one train step at 1024 rays and 2^15 samples, full
+   field width, same weights, jitter and draws, for each table-gradient
+   route: the fused encoder at float32 (K4-w3, with one occupancy update)
+   and bf16 (K2), the grouped encoder at bf16 (K6) and float32 (autograd),
+   and the fused encoder with ``table_grad="pallas"`` (K5, bf16),
+   ``factor_pack="w8"`` (K4-w8, bf16 and float32) and ``"w3"`` (K4-w3,
+   bf16): the kept samples, the loss, every gradient and the parameters
+   after Adam must agree, and each route must launch its kernel.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -59,6 +70,12 @@ CHUNK = 4096
 # bench.py's train configuration (throughput phase).
 TRAIN_FIELD_CFG = dict(
     n_levels=4, n_features_per_level=16, log2_hashmap_size=18,
+    mlp_width=64, geo_feat_dim=15,
+)
+# bench.py's tcnn-shape arm (BENCH_ENCODER=grouped BENCH_LEVELS=16
+# BENCH_FEATS=2 BENCH_LOG2T=19; examples/radiance_fields/ngp.py:99-137).
+GROUPED_FIELD_CFG = dict(
+    encoder_type="grouped", n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
     mlp_width=64, geo_feat_dim=15,
 )
 TRAIN_RAYS, TRAIN_CAPACITY, TRAIN_MACRO = 16384, 1 << 19, 4
@@ -347,17 +364,25 @@ def traversal_card_vs_cpu(est, shell, rays_o, rays_d, jitter, dev) -> None:
 
 
 def kernels_vs_plain(dev) -> dict:
-    """Phase 5: K2, K4-w3 and K3 against their plain versions at the
-    training shapes, and their times."""
-    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused
+    """Phase 5: K2, K4 (its four modes), K5, K6 and K3 against their plain
+    versions at the training shapes, and their times."""
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused, HashGridEncoderGrouped
     from nerfacc_tpu_torch.ops.table_grad import (
+        FetchConsts,
         cell_max,
         cell_max_plain,
+        corner_weights,
         quantize_u10,
+        table_grad_pos,
+        table_grad_pos_plain,
+        table_grad_sorted,
+        table_grad_sorted_plain,
         table_grad_u10,
         table_grad_u10_plain,
         table_grad_w3,
         table_grad_w3_plain,
+        table_grad_w8,
+        table_grad_w8_plain,
     )
 
     rng = np.random.default_rng(1)
@@ -383,15 +408,41 @@ def kernels_vs_plain(dev) -> dict:
     dout = torch.from_numpy(
         (rng.standard_normal((n_sl, 16)) * 1e-3).astype(np.float32)
     ).to(dev)
-    dout_bf = dout.to(torch.bfloat16)
+    bf = torch.bfloat16
+    dout_bf = dout.to(bf)
+    w3_bf = [w.to(bf) for w in (wx, wy, wz)]
+    w8 = corner_weights(wx, wy, wz).contiguous()
+    w8_bf = w8.to(bf)
+    # K5's input: the cotangent of the gathered rows as autograd of the bf16
+    # combine gives it, bf16(w_c * dout_f).
+    dg = (w8_bf.float()[:, :, None] * dout_bf.float()[:, None, :]).to(bf).reshape(n_sl, 128)
     rows_hit = int((torch.bincount(idx[: n_sl // 4].long(), minlength=4096) > 0).sum())
     untouched = torch.bincount(idx.long(), minlength=n_rows) == 0
-    print(f"K2/K4 inputs: {n_sl} sample-levels over {n_rows} rows, level 0 on {rows_hit} rows", flush=True)
+    print(f"K2/K4/K5 inputs: {n_sl} sample-levels over {n_rows} rows, level 0 on {rows_hit} rows", flush=True)
+
+    # K6 at the grouped train shape: the same points through the tcnn-shape
+    # encoder (2 spans of 2^16 rows, 8 fetches a sample).
+    genc = HashGridEncoderGrouped(log2_hashmap_size=16, device=dev)
+    gx, gy, gz = (u[:, i].contiguous() for i in range(3))
+    g_rows = genc.fetch_rows(gx, gy, gz)
+    nf, g_n_rows = g_rows.shape[0], genc.table.shape[0]
+    g_key = (g_rows * nf + torch.arange(nf, device=dev)[:, None]).reshape(-1).to(torch.int32)
+    g_sorted, g_perm = torch.sort(g_key)
+    g_dout = torch.from_numpy((rng.standard_normal((nf * n, 4)) * 1e-3).astype(np.float32)).to(dev).to(bf)
+    g_untouched = torch.bincount(g_rows.reshape(-1), minlength=g_n_rows) == 0
+    print(f"K6 inputs: {n} samples x {nf} fetches over {g_n_rows} rows", flush=True)
 
     out = {}
-    for label, kern, plain, args in (
-        ("K2", table_grad_u10, table_grad_u10_plain, (sorted_idx, perm, wq, dout_bf, n_rows)),
-        ("K4-w3", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, wx, wy, wz, dout, n_rows)),
+    for label, kern, plain, args, zero_rows in (
+        ("K2", table_grad_u10, table_grad_u10_plain, (sorted_idx, perm, wq, dout_bf, n_rows), untouched),
+        ("K4-w3", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, wx, wy, wz, dout, n_rows), untouched),
+        ("K4-w3-bf16", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, *w3_bf, dout_bf, n_rows), untouched),
+        ("K4-w8-bf16", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8_bf, dout_bf, n_rows), untouched),
+        ("K4-w8", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8, dout, n_rows), untouched),
+        ("K5", table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg, n_rows), untouched),
+        ("K6", table_grad_pos, table_grad_pos_plain,
+         (g_sorted, g_perm, gx, gy, gz, g_dout, g_n_rows, genc.fetches, 2,
+          FetchConsts(genc._fetch_res, genc._fetch_is_key, genc._fetch_win)), g_untouched),
     ):
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
@@ -402,23 +453,52 @@ def kernels_vs_plain(dev) -> dict:
         print(f"{label}: max abs err {err:.3e} against plain (largest row sum {scale:.3e})", flush=True)
         if not err <= 1e-5 * scale:
             fail(f"{label} disagrees with its plain version: {err} > 1e-5 * {scale}")
-        if bool(got[untouched].any()):
+        if bool(got[zero_rows].any()):
             fail(f"{label} wrote rows that no sample names")
         out[label] = dict(
             err=err, ms=time_ms(lambda: kern(*args)), plain_ms=time_ms(lambda: plain(*args), calls=5)
         )
+        del got, want
+    # K5's library call: index_add_ of the same cotangent into a float32
+    # table (the bf16 rows widened to float32 beforehand, outside the time).
+    dg_f32, idx_long = dg.float(), idx.long()
+
+    def library():
+        return torch.zeros((n_rows, 128), device=dev).index_add_(0, idx_long, dg_f32)
+
+    k5 = table_grad_sorted(sorted_idx, perm, dg, n_rows)
+    lib_err = float((library() - k5).abs().max())
+    print(f"K5 against index_add_: max abs err {lib_err:.3e}", flush=True)
+    if not lib_err <= 1e-5 * float(k5.abs().max()):
+        fail(f"K5 disagrees with index_add_: {lib_err}")
+    out["K5"]["library_ms"] = time_ms(library)
+    del dg_f32, k5
     sort_ms = time_ms(lambda: torch.sort(idx))
-    out["K2"]["bytes"] = n_sl * (4 + 4 + 2 * 16) + n_rows * 128 * 4
-    out["K4-w3"]["bytes"] = n_sl * (4 + 3 * 4 + 4 * 16) + n_rows * 128 * 4
-    for label in ("K2", "K4-w3"):
-        out[label]["ops"] = n_sl * 8 * 16 * 2  # a multiply and an add per term
-        o = out[label]
+    table_bytes = n_rows * 128 * 4
+    # Bytes each function must move: each input read once (row, weights,
+    # cotangent; not the sort's permutation), the table written once.
+    for label, per_sample in (
+        ("K2", 4 + 4 + 2 * 16), ("K4-w3", 4 + 3 * 4 + 4 * 16), ("K4-w3-bf16", 4 + 3 * 2 + 2 * 16),
+        ("K4-w8-bf16", 4 + 8 * 2 + 2 * 16), ("K4-w8", 4 + 8 * 4 + 4 * 16), ("K5", 4 + 2 * 128),
+    ):
+        out[label]["bytes"] = n_sl * per_sample + table_bytes
+        # A multiply and an add per term (K5: an add per element).
+        out[label]["ops"] = n_sl * 128 * (1 if label == "K5" else 2)
+    n_pairs = nf * n
+    out["K6"]["bytes"] = n_pairs * (4 + 2 * 4) + n * 3 * 4 + g_n_rows * 128 * 4
+    # Per pair: two sub-levels' fractions and corner weights (about 46
+    # operations each) and 32 terms of a multiply and an add.
+    out["K6"]["ops"] = n_pairs * (2 * 46 + 32 * 2)
+    for label, o in out.items():
         print(
-            f"{label} at {n_sl} sample-levels: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, "
-            f"bound {o['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms ({o['bytes']} B at 3.35 TB/s)",
+            f"{label}: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, "
+            f"bound {o['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms ({o['bytes']} B at 3.35 TB/s)"
+            + (f", index_add_ {o['library_ms']:.4f} ms" if "library_ms" in o else ""),
             flush=True,
         )
-    print(f"torch.sort of {n_sl} int32 rows (outside K2, K4): {sort_ms:.4f} ms", flush=True)
+    print(f"torch.sort of {n_sl} int32 rows (outside K2, K4, K5): {sort_ms:.4f} ms", flush=True)
+    print(f"torch.sort of {n_pairs} int32 (row, fetch) keys (outside K6): "
+          f"{time_ms(lambda: torch.sort(g_key)):.4f} ms", flush=True)
 
     # K3 at bench.py's update: 2^20 draws into 2^21 cells, half uniform and
     # half from the occupied shell (so cells repeat), values in [0, 4e-3]
@@ -461,21 +541,23 @@ def kernels_vs_plain(dev) -> dict:
     return out
 
 
-def train_full_width(dev):
-    """Phase 6: bench.py's throughput phase on the port, then K1 against its
-    plain version on one step's queries.  Returns the field (for phase 7),
-    the launches of K1, K2 and K3 on the train path and K1's largest
-    difference on those queries."""
+def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_k1):
+    """Phases 6 and 7: bench.py's throughput phase on the port with the
+    field ``field_cfg``, whose table gradient launches ``grad_kernel``
+    (``grad_label`` in the prints); then, if ``check_k1``, K1 against its
+    plain version on one step's queries.  Returns the field (for phase 8),
+    the launches of K1, the table-gradient kernel and K3 on the train path,
+    and K1's largest difference on those queries (0 when not checked)."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
     from nerfacc_tpu_torch.ops.occ_query import occupancy_query
-    from nerfacc_tpu_torch.ops.table_grad import cell_max, table_grad_u10
+    from nerfacc_tpu_torch.ops.table_grad import cell_max
 
     est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1, skip_factor=2)
     state = est.set_binaries(est.init(dev), torch.from_numpy(shell_binaries(GRID_RES)))
     field = NGPRadianceField(
         aabb=AABB, compute_dtype=torch.bfloat16, device=dev,
-        generator=torch.Generator().manual_seed(0), **TRAIN_FIELD_CFG,
+        generator=torch.Generator().manual_seed(0), **field_cfg,
     )
     opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
     rng = np.random.default_rng(0)  # bench.py:86,118-122
@@ -495,7 +577,7 @@ def train_full_width(dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    occupancy_query.launches = table_grad_u10.launches = cell_max.launches = 0
+    occupancy_query.launches = grad_kernel.launches = cell_max.launches = 0
     losses = []
     for _ in range(3):  # warm-up
         losses.append(step()[0])
@@ -514,7 +596,7 @@ def train_full_width(dev):
     outs = [update() for _ in range(TRAIN_UPDATES)]
     torch.cuda.synchronize()
     update_time = (time.perf_counter() - t0) / TRAIN_UPDATES
-    launches = dict(K1=occupancy_query.launches, K2=table_grad_u10.launches, K3=cell_max.launches)
+    launches = {"K1": occupancy_query.launches, grad_label: grad_kernel.launches, "K3": cell_max.launches}
     total = int(torch.stack(n_samps).sum())
     occupied = int(outs[-1].binaries.sum())
     del outs
@@ -522,20 +604,21 @@ def train_full_width(dev):
     sps = total / (step_time + TRAIN_ITERS / 16.0 * update_time)
     first, last = float(losses[0]), float(losses[-1])
     print(
-        f"train: {sps:.1f} samples/s ({total} samples in {TRAIN_ITERS} steps), "
-        f"step {step_time / TRAIN_ITERS * 1e3:.2f} ms, occupancy update {update_time * 1e3:.2f} ms, "
-        f"launches K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+        f"train ({field_cfg.get('encoder_type', 'fused')}): {sps:.1f} samples/s ({total} samples in "
+        f"{TRAIN_ITERS} steps), step {step_time / TRAIN_ITERS * 1e3:.2f} ms, occupancy update "
+        f"{update_time * 1e3:.2f} ms, launches "
+        + " ".join(f"{k} {v}" for k, v in launches.items())
+        + f", max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
         f"loss first {first:.6f} last {last:.6f}, occupied after an update {occupied}",
         flush=True,
     )
     if not all(math.isfinite(float(x)) for x in losses):
         fail("train: a loss is not finite")
-    if launches["K1"] <= 0 or launches["K2"] < TRAIN_ITERS or launches["K3"] < TRAIN_UPDATES:
+    if launches["K1"] <= 0 or launches[grad_label] < TRAIN_ITERS or launches["K3"] < TRAIN_UPDATES:
         fail(f"train: kernels launched too few times on the train path: {launches}")
     if not 0.5 * TRAIN_CAPACITY * TRAIN_ITERS < total <= TRAIN_CAPACITY * TRAIN_ITERS:
         fail(f"train: {total} samples in {TRAIN_ITERS} steps is not near the capacity")
-    k1_err = k1_on_train_inputs(step, state)
+    k1_err = k1_on_train_inputs(step, state) if check_k1 else 0.0
 
     def steps_and_update():
         for _ in range(3):
@@ -544,23 +627,25 @@ def train_full_width(dev):
 
     profile_window(
         steps_and_update,
-        ("traverse_and_compact", "field_forward", "rendering", "backward",
+        ("traverse_and_compact", "field_forward", "gather_combine", "rendering", "backward",
          "table_grad", "optimizer", "occ_update"),
-        "train (3 steps and 1 update)", "profile_train.txt",
+        f"train {field_cfg.get('encoder_type', 'fused')} (3 steps and 1 update)", profile_name,
     )
     return field, launches, k1_err
 
 
-def train_card_vs_cpu(dev, field_state) -> int:
-    """Phase 7: one train step and one occupancy update at 1024 rays and
-    2^15 samples, full width, on the card and on the CPU, from the same
-    weights, jitter and draws.  Returns K4-w3's launches in the card's
-    float32 step."""
+def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
+    """Phase 8: the traversal, then one train step at 1024 rays and 2^15
+    samples, full width, on the card and on the CPU, from the same weights,
+    jitter and draws, for every table-gradient route (and one occupancy
+    update after the float32 fused step).  Returns each route's kernel
+    launches in its card step."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
-    from nerfacc_tpu_torch.ops.table_grad import table_grad_u10, table_grad_w3
+    from nerfacc_tpu_torch.ops import table_grad as tg
 
     cpu = torch.device("cpu")
+    bf = torch.bfloat16
     n_rays, capacity = 1024, 1 << 15
     rng = np.random.default_rng(2)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32)
@@ -572,24 +657,38 @@ def train_card_vs_cpu(dev, field_state) -> int:
     draws = est.make_draws(10**9, torch.Generator().manual_seed(3), device=cpu)
     shell = torch.from_numpy(shell_binaries(GRID_RES))
     traversal_card_vs_cpu(est, shell, rays_o, rays_d, jitter, dev)
-    w3_launches = 0
+    wrappers = ("table_grad_u10", "table_grad_w3", "table_grad_w8", "table_grad_sorted", "table_grad_pos")
+    fused, grouped = TRAIN_FIELD_CFG, GROUPED_FIELD_CFG
     # Tolerances, relative to each parameter's largest gradient: float32,
-    # 1e-4 for the table (K4-w3 against its plain version and the same
+    # 1e-4 for the table (the kernel against its plain version, or the
+    # card's atomic index_put_ for the grouped float32 step, and the same
     # upstream float32 math) and 3e-4 for the MLPs, whose gradients are sums
     # over 32k samples that cancel, so the card's and the CPU's last-bit
     # differences in GEMMs and exp/sigmoid grow relative to the result
     # (9.05e-5 to 1.06e-4 measured); bf16, 2e-2 for all
     # (tests/test_models.py:549).
-    for cdt, label, tol, mlp_tol in (
-        (None, "float32", 1e-4, 3e-4), (torch.bfloat16, "bf16", 2e-2, 2e-2)
-    ):
+    routes = (
+        # (label, field configuration, weights, compute dtype, table tol,
+        #  MLP tol, the wrapper that must launch once, or None)
+        ("float32", fused, fused_state, None, 1e-4, 3e-4, "table_grad_w3"),
+        ("bf16", fused, fused_state, bf, 2e-2, 2e-2, "table_grad_u10"),
+        ("grouped bf16", grouped, grouped_state, bf, 2e-2, 2e-2, "table_grad_pos"),
+        ("grouped float32", grouped, grouped_state, None, 1e-4, 3e-4, None),
+        ("pallas bf16", dict(fused, table_grad="pallas"), fused_state, bf, 2e-2, 2e-2, "table_grad_sorted"),
+        ("w8 bf16", dict(fused, factor_pack="w8"), fused_state, bf, 2e-2, 2e-2, "table_grad_w8"),
+        ("w8 float32", dict(fused, factor_pack="w8"), fused_state, None, 1e-4, 3e-4, "table_grad_w8"),
+        ("w3 bf16", dict(fused, factor_pack="w3"), fused_state, bf, 2e-2, 2e-2, "table_grad_w3"),
+    )
+    launches = {}
+    for label, cfg, field_state, cdt, tol, mlp_tol, kernel in routes:
         res = []
         for device in (dev, cpu):
-            field = NGPRadianceField(aabb=AABB, compute_dtype=cdt, device=device, **TRAIN_FIELD_CFG)
+            field = NGPRadianceField(aabb=AABB, compute_dtype=cdt, device=device, **cfg)
             field.load_state_dict({k: v.to(device) for k, v in field_state.items()})
             opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
             state = est.set_binaries(est.init(device), shell)
-            counts = table_grad_u10.launches, table_grad_w3.launches
+            for w in wrappers:
+                getattr(tg, w).launches = 0
             t0 = time.perf_counter()
             loss, n_samp = train_step(
                 field, opt, est, state, rays_o.to(device), rays_d.to(device),
@@ -597,14 +696,14 @@ def train_card_vs_cpu(dev, field_state) -> int:
             )
             grads = {k: p.grad.detach().cpu() for k, p in field.named_parameters()}
             params = {k: p.detach().cpu() for k, p in field.named_parameters()}
-            new_state = occ_update(est, state, field, draws=draws) if cdt is None else None
+            new_state = occ_update(est, state, field, draws=draws) if label == "float32" else None
             if device.type == "cuda":
                 torch.cuda.synchronize()
-                if cdt is None:
-                    w3_launches = table_grad_w3.launches - counts[1]
-                used = (table_grad_u10.launches - counts[0], table_grad_w3.launches - counts[1])
-                if used != ((0, 1) if cdt is None else (1, 0)):
-                    fail(f"card vs CPU ({label}): K2, K4-w3 launches {used}")
+                used = {w: getattr(tg, w).launches for w in wrappers}
+                want = {w: int(w == kernel) for w in wrappers}
+                if used != want:
+                    fail(f"card vs CPU ({label}): table-gradient launches {used}, expected {want}")
+                launches[label] = used.get(kernel, 0)
             res.append(dict(
                 loss=float(loss), n=int(n_samp), grads=grads, params=params,
                 occs=None if new_state is None else new_state.occs.cpu(),
@@ -640,7 +739,7 @@ def train_card_vs_cpu(dev, field_state) -> int:
         )
         if loss_err > tol:
             fail(f"card vs CPU ({label}): loss rel err {loss_err} > {tol}")
-        if cdt is None:
+        if b["occs"] is not None:
             occ = b["occs"]
             thre = min(float(occ[occ >= 0].mean()), 1e-2)
             flips = (a["binaries"] != b["binaries"]).reshape(-1)
@@ -653,7 +752,7 @@ def train_card_vs_cpu(dev, field_state) -> int:
                   f"{float((a['occs'] - occ).abs().max()):.3e}", flush=True)
             if bool((flips & ~near).any()):
                 fail("card vs CPU: the occupancy grids differ away from the threshold")
-    return w3_launches
+    return launches
 
 
 def main() -> None:
@@ -823,7 +922,7 @@ def main() -> None:
     print(f"profile serve: {int(sel.numel())} rays (every 8th chunk)", flush=True)
     profile_window(
         lambda: render(o_all[sel], d_all[sel]),
-        ("traverse_grids", "compact_indices_from_counts",
+        ("traverse_grids", "compact_indices_from_counts", "gather_combine",
          "render_weight_from_density", "accumulate_along_rays"),
         "serve", "profile_serve.txt",
     )
@@ -859,34 +958,48 @@ def main() -> None:
     if max(errs.values()) > 1e-4:
         fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
 
-    # ---- 5. K2, K4-w3, K3 against their plain versions ----------------------
+    # ---- 5. the table-gradient kernels and K3 against their plain versions --
     kt = kernels_vs_plain(dev)
 
     # ---- 6. train at full width ---------------------------------------------
-    trained, train_launches, k1_train_err = train_full_width(dev)
+    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10
+
+    trained, train_launches, k1_train_err = train_full_width(
+        dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_k1=True
+    )
     k1_max_err = max(k1_max_err, k1_train_err)
 
-    # ---- 7. train step, card against CPU ------------------------------------
-    w3_launches = train_card_vs_cpu(
-        dev, {k: v.detach().clone() for k, v in trained.state_dict().items()}
+    # ---- 7. train at full width, tcnn shape (grouped encoder) ---------------
+    grouped, grouped_launches, _ = train_full_width(
+        dev, GROUPED_FIELD_CFG, table_grad_pos, "K6", "profile_train_grouped.txt", check_k1=False
     )
 
-    # K1's launches here are the train path's (phase 6); the serve path's
-    # are printed in phase 3.
+    # ---- 8. train steps, card against CPU -----------------------------------
+    def weights(field):
+        return {k: v.detach().clone() for k, v in field.state_dict().items()}
+
+    route_launches = train_card_vs_cpu(dev, weights(trained), weights(grouped))
+
+    # K1's launches here are the fused train path's (phase 6); the serve
+    # path's are printed in phase 3.  K2, K3: phase 6; K6: phase 7; K4 and
+    # K5: their routes' card steps in phase 8.
     src = "nerfacc_tpu_torch/csrc/"
+    tg_py = "nerfacc_tpu/ops/table_grad.py:"
     kernels = [
         kernel_row("occupancy_query", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
                    train_launches["K1"], k1_max_err, k1_ms, k1_plain_ms, k1_bytes, k1_ops, None),
     ] + [
-        kernel_row(name, src + file, replaces, launches, kt[key]["err"], kt[key]["ms"],
+        kernel_row(name, src + file, tg_py + line, launches, kt[key]["err"], kt[key]["ms"],
                    kt[key]["plain_ms"], kt[key]["bytes"], kt[key]["ops"], kt[key].get("library_ms"))
-        for name, key, file, replaces, launches in (
-            ("table_grad_u10", "K2", "table_grad.cu", "nerfacc_tpu/ops/table_grad.py:749",
-             train_launches["K2"]),
-            ("table_grad_w3", "K4-w3", "table_grad.cu", "nerfacc_tpu/ops/table_grad.py:572",
-             w3_launches),
-            ("cell_max", "K3", "cell_max.cu", "nerfacc_tpu/ops/table_grad.py:1918",
-             train_launches["K3"]),
+        for name, key, file, line, launches in (
+            ("table_grad_u10", "K2", "table_grad.cu", "749", train_launches["K2"]),
+            ("table_grad_w3", "K4-w3", "table_grad.cu", "572", route_launches["float32"]),
+            ("table_grad_w3_bf16", "K4-w3-bf16", "table_grad.cu", "572", route_launches["w3 bf16"]),
+            ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),
+            ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),
+            ("table_grad_sorted", "K5", "table_grad_sorted.cu", "245", route_launches["pallas bf16"]),
+            ("table_grad_pos", "K6", "table_grad_pos.cu", "1488", grouped_launches["K6"]),
+            ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
         )
     ]
     print(card_line, flush=True)  # nvidia-smi's name and power limit

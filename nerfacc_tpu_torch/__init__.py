@@ -12,7 +12,10 @@ Ported so far: the occupancy-grid inference renderer
 (:func:`~nerfacc_tpu_torch.rendering.occgrid_render_rays_test`) and the
 NGP-occ train step (:func:`~nerfacc_tpu_torch.rendering.occgrid_render_rays`
 with the NGP field's backward and the occupancy update
-:meth:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator._update`).
+:meth:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator._update`),
+with the fused encoder (every table-gradient route) or the grouped
+tcnn-shape encoder
+(:class:`~nerfacc_tpu_torch.models.hash_soa.HashGridEncoderGrouped`).
 """
 
 __version__ = "0.1.0"

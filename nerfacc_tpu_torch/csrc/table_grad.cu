@@ -2,180 +2,169 @@
 //
 // Replaces the TPU kernels nerfacc_tpu/ops/table_grad.py:
 //   table_grad_factors_sorted_u10 (kernel body _factor_kernel_u10)  -> K2,
-//   table_grad_factors_sorted with wpack="w3" (_factor_kernel)       -> K4-w3.
-// For each sample i with table row r_i, fractional cell weights
-// (wx, wy, wz)_i and output cotangent dout_i (16 features), it adds
-// w_c(i) * dout_i[f] into out[r_i, c * 16 + f] for the 8 corners
-// c = 4 dx + 2 dy + dz, with w_c the product (wx' * wy') * wz'.
-//   u10 (bf16 compute): the weights arrive as 10-bit fixed point in one
-//     int32 and are dequantised as q * (1/1023), their complements as
-//     fma(-q, 1/1023, 1) (XLA contracts the Pallas kernel's 1 - q * (1/1023)
-//     into one rounding); each corner weight is rounded to bf16 and each
-//     product w_c * dout_f is rounded to bf16 before it is added in float32
-//     -- the steps of the Pallas kernel, term for term.
-//   w3 (float32 compute): float32 weights, products and sums.
-// The plain PyTorch versions (nerfacc_tpu_torch/ops/table_grad.py:
-// table_grad_u10_plain, table_grad_w3_plain) do the same arithmetic; only the
+//   table_grad_factors_sorted (_factor_kernel), wpack "w3" and "w8"  -> K4.
+// For each sample i with table row r_i, corner weights w_c(i) and output
+// cotangent dout_i (16 features), it adds w_c(i) * dout_i[f] into
+// out[r_i, c * 16 + f] for the 8 corners c = 4 dx + 2 dy + dz.  The weights
+// arrive in one of three forms:
+//   u10: three fractions as 10-bit fixed point in one int32, dequantised as
+//     q * (1/1023), their complements as fma(-q, 1/1023, 1) (XLA contracts
+//     the Pallas kernel's 1 - q * (1/1023) into one rounding);
+//   w3: the three fractions (wx, wy, wz), in bf16 or float32;
+//   w8: the eight corner weights, in bf16 or float32.
+// From u10 and w3 the corner weight is the float32 product (wx' * wy') * wz'.
+// In bf16 (u10 always; w3 and w8 with bf16 inputs) each corner weight is
+// rounded to bf16 and each product w_c * dout_f is rounded to bf16 before it
+// is added in float32 -- the steps of the Pallas kernel, term for term.  In
+// float32 the products and sums are float32.  The plain PyTorch versions
+// (nerfacc_tpu_torch/ops/table_grad.py: table_grad_u10_plain,
+// table_grad_w3_plain, table_grad_w8_plain) do the same arithmetic; only the
 // order of the float32 sums differs.  Built with --fmad=false.
 //
 // What bounds it: device memory.  At the training shape (2,097,152
-// sample-levels, 131,072 rows) it reads 40 B per sample (row, weights, 32 B
+// sample-levels, 131,072 rows), K2 reads 40 B per sample (row, weights, 32 B
 // of bf16 cotangent) and writes a 64 MiB table: 151 MB, 0.045 ms at
 // 3.35 TB/s; the arithmetic (8 x 16 multiply-adds a sample) is far below the
 // card's rate.  The TPU kernel built one-hot matrices for the MXU; here the
-// samples come sorted by row (torch.sort, outside the kernel), and each warp
-// reduces one contiguous span of them: its 32 lanes x 4 features cover the
-// 128 columns of a row, a run of equal rows is summed in registers and
-// written once.  Only a run that crosses a span boundary is added with
-// atomics.  Adding every term with an unsorted atomicAdd would serialise on
-// the densely indexed coarse level (4096 rows receive a quarter of all
-// samples).  One launch covers all levels: row ids are unique across them.
+// samples come sorted by row (torch.sort, outside the kernel) and each warp
+// reduces one contiguous span of them (csrc/sorted_rows.cuh): lane l holds
+// columns 4l .. 4l + 3, that is corner l / 4 and features 4 (l % 4) .. + 3.
+// Adding every term with an unsorted atomicAdd would serialise on the
+// densely indexed coarse level (4096 rows receive a quarter of all samples).
+// One launch covers all levels: row ids are unique across them.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sorted_rows.cuh"
 
 namespace {
 
 constexpr int kF = 16;     // features per corner
 constexpr int kRow = 128;  // 8 corners x 16 features
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+enum class Weights { kU10, kW3, kW8 };
 
-__device__ __forceinline__ void flush(float* out, int row, int col,
-                                      const float (&acc)[4], bool atomic) {
-  float* dst = out + static_cast<int64_t>(row) * kRow + col;
-  if (atomic) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) atomicAdd(dst + j, acc[j]);
-  } else {
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+// T is the type of dout and of the w3/w8 weights (u10: bf16); the terms are
+// rounded to bf16 when T is bf16.
+template <Weights kW, typename T>
+struct FactorOp {
+  struct Sample {
+    int64_t p = 0;  // the sample's index in the unsorted inputs
+    int q = 0;      // u10 weights
+    float x = 0.f, y = 0.f, z = 0.f;  // w3 weights
+    __device__ Sample shfl(int j) const {
+      Sample s;
+      s.p = shfl64(p, j);
+      if constexpr (kW == Weights::kU10) s.q = __shfl_sync(kAllLanes, q, j);
+      if constexpr (kW == Weights::kW3) {
+        s.x = __shfl_sync(kAllLanes, x, j);
+        s.y = __shfl_sync(kAllLanes, y, j);
+        s.z = __shfl_sync(kAllLanes, z, j);
+      }
+      return s;
+    }
+  };
+
+  const int64_t* perm;
+  const int32_t* wq;
+  const T* wx;
+  const T* wy;
+  const T* wz;
+  const T* w8;
+  const T* dout;
+  float* out;
+  float inv1023;
+  int lane, c;
+  bool hx, hy, hz;
+  float acc[4];
+
+  __device__ Sample load(int64_t i) const {
+    Sample s;
+    s.p = __ldg(perm + i);
+    if constexpr (kW == Weights::kU10) s.q = __ldg(wq + s.p);
+    if constexpr (kW == Weights::kW3) {
+      s.x = to_float(__ldg(wx + s.p));
+      s.y = to_float(__ldg(wy + s.p));
+      s.z = to_float(__ldg(wz + s.p));
+    }
+    return s;
   }
-}
 
-// kU10: dout is bf16 and the weights are u10-packed (wq); otherwise dout is
-// float32 and the weights are wx, wy, wz.
-template <bool kU10>
+  __device__ void add(const Sample& s, int) {
+    float w;
+    if constexpr (kW == Weights::kU10) {
+      const float qx = static_cast<float>((s.q >> 20) & 1023);
+      const float qy = static_cast<float>((s.q >> 10) & 1023);
+      const float qz = static_cast<float>(s.q & 1023);
+      w = (hx ? qx * inv1023 : __fmaf_rn(-qx, inv1023, 1.f)) *
+          (hy ? qy * inv1023 : __fmaf_rn(-qy, inv1023, 1.f));
+      w = w * (hz ? qz * inv1023 : __fmaf_rn(-qz, inv1023, 1.f));
+    } else if constexpr (kW == Weights::kW3) {
+      w = (hx ? s.x : 1.f - s.x) * (hy ? s.y : 1.f - s.y);
+      w = w * (hz ? s.z : 1.f - s.z);
+    } else {
+      w = to_float(__ldg(w8 + s.p * 8 + c));
+    }
+    float d[4];
+    load4(dout + s.p * kF + (lane & 3) * 4, d);
+    if constexpr (sizeof(T) == 2) {
+      w = bf16_round(w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] += bf16_round(w * d[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] += w * d[k];
+    }
+  }
+
+  __device__ void flush(int row, bool atomic) {
+    flush4(out + static_cast<int64_t>(row) * kRow + lane * 4, acc, atomic);
+  }
+};
+
+template <Weights kW, typename T>
 __global__ void __launch_bounds__(256)
     table_grad_kernel(const int32_t* __restrict__ sorted_idx,
                       const int64_t* __restrict__ perm,
-                      const int32_t* __restrict__ wq,
-                      const float* __restrict__ wx,
-                      const float* __restrict__ wy,
-                      const float* __restrict__ wz,
-                      const void* __restrict__ dout, float* __restrict__ out,
-                      int64_t n, int span, float inv1023) {
-  const unsigned kAll = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t begin = warp * span;
-  if (begin >= n) return;  // uniform across the warp
-  const int64_t end = begin + span < n ? begin + span : n;
-
-  // This lane's corner and its 4 features: columns c * 16 + f0 .. + 3.
-  const int c = lane >> 2;
-  const int f0 = (lane & 3) * 4;
-  const int col = c * kF + f0;
-  const bool hx = (c >> 2) & 1, hy = (c >> 1) & 1, hz = c & 1;
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int cur = __ldg(sorted_idx + begin);
-  // The first run is shared with the previous span if it started there.
-  bool head = true;
-  const bool head_shared = begin > 0 && __ldg(sorted_idx + begin - 1) == cur;
-
-  for (int64_t base = begin; base < end; base += 32) {
-    // Each lane loads one sample's row, source index and weights; the warp
-    // then walks the 32 samples in order, broadcasting them by shuffle.
-    const int64_t i = base + lane;
-    const bool in = i < end;
-    const int r_l = in ? __ldg(sorted_idx + i) : 0;
-    const int64_t p_l = in ? __ldg(perm + i) : 0;
-    int q_l = 0;
-    float x_l = 0.f, y_l = 0.f, z_l = 0.f;
-    if (in) {
-      if (kU10) {
-        q_l = __ldg(wq + p_l);
-      } else {
-        x_l = __ldg(wx + p_l);
-        y_l = __ldg(wy + p_l);
-        z_l = __ldg(wz + p_l);
-      }
-    }
-    const int cnt = static_cast<int>(end - base < 32 ? end - base : 32);
-    for (int j = 0; j < cnt; ++j) {
-      const int r = __shfl_sync(kAll, r_l, j);
-      const int64_t p = __shfl_sync(kAll, p_l, j);
-      if (r != cur) {  // uniform: every lane sees the same row
-        flush(out, cur, col, acc, head && head_shared);
-        head = false;
-        cur = r;
+                      const int32_t* __restrict__ wq, const T* __restrict__ wx,
+                      const T* __restrict__ wy, const T* __restrict__ wz,
+                      const T* __restrict__ w8, const T* __restrict__ dout,
+                      float* __restrict__ out, int64_t n, int span,
+                      float inv1023) {
+  FactorOp<kW, T> op;
+  op.perm = perm;
+  op.wq = wq;
+  op.wx = wx;
+  op.wy = wy;
+  op.wz = wz;
+  op.w8 = w8;
+  op.dout = dout;
+  op.out = out;
+  op.inv1023 = inv1023;
+  op.lane = threadIdx.x & 31;
+  op.c = op.lane >> 2;
+  op.hx = (op.c >> 2) & 1;
+  op.hy = (op.c >> 1) & 1;
+  op.hz = op.c & 1;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] = 0.f;
-      }
-      float w;
-      if (kU10) {
-        const int q = __shfl_sync(kAll, q_l, j);
-        const float qx = static_cast<float>((q >> 20) & 1023);
-        const float qy = static_cast<float>((q >> 10) & 1023);
-        const float qz = static_cast<float>(q & 1023);
-        w = (hx ? qx * inv1023 : __fmaf_rn(-qx, inv1023, 1.f)) *
-            (hy ? qy * inv1023 : __fmaf_rn(-qy, inv1023, 1.f));
-        w = w * (hz ? qz * inv1023 : __fmaf_rn(-qz, inv1023, 1.f));
-      } else {
-        const float x = __shfl_sync(kAll, x_l, j);
-        const float y = __shfl_sync(kAll, y_l, j);
-        const float z = __shfl_sync(kAll, z_l, j);
-        w = (hx ? x : 1.f - x) * (hy ? y : 1.f - y);
-        w = w * (hz ? z : 1.f - z);
-      }
-      if (kU10) {
-        w = bf16_round(w);
-        const uint2 bits = __ldg(reinterpret_cast<const uint2*>(
-            static_cast<const __nv_bfloat16*>(dout) + p * kF + f0));
-        const float d[4] = {__uint_as_float(bits.x << 16),
-                            __uint_as_float(bits.x & 0xffff0000u),
-                            __uint_as_float(bits.y << 16),
-                            __uint_as_float(bits.y & 0xffff0000u)};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] += bf16_round(w * d[k]);
-      } else {
-        const float4 d = __ldg(reinterpret_cast<const float4*>(
-            static_cast<const float*>(dout) + p * kF + f0));
-        acc[0] += w * d.x;
-        acc[1] += w * d.y;
-        acc[2] += w * d.z;
-        acc[3] += w * d.w;
-      }
-    }
-  }
-  // The last run is shared with the next span if it goes on there.
-  const bool tail_shared = end < n && __ldg(sorted_idx + end) == cur;
-  flush(out, cur, col, acc, tail_shared || (head && head_shared));
+  for (int k = 0; k < 4; ++k) op.acc[k] = 0.f;
+  sum_sorted_span(sorted_idx, n, span, op);
 }
 
-int launch(bool u10, const int32_t* sorted_idx, const int64_t* perm,
-           const int32_t* wq, const float* wx, const float* wy,
-           const float* wz, const void* dout, float* out, long long n,
-           int span, float inv1023, void* stream) {
+template <Weights kW, typename T>
+int launch(const int32_t* sorted_idx, const int64_t* perm, const int32_t* wq,
+           const void* wx, const void* wy, const void* wz, const void* w8,
+           const void* dout, float* out, long long n, int span, float inv1023,
+           void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const long long warps = (n + span - 1) / span;
-  const long long blocks = (warps * 32 + threads - 1) / threads;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (u10) {
-    table_grad_kernel<true><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        sorted_idx, perm, wq, nullptr, nullptr, nullptr, dout, out, n, span,
-        inv1023);
-  } else {
-    table_grad_kernel<false><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        sorted_idx, perm, nullptr, wx, wy, wz, dout, out, n, span, inv1023);
-  }
+  const unsigned blocks = sorted_span_blocks(n, span);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  table_grad_kernel<kW, T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      sorted_idx, perm, wq, static_cast<const T*>(wx), static_cast<const T*>(wy),
+      static_cast<const T*>(wz), static_cast<const T*>(w8),
+      static_cast<const T*>(dout), out, n, span, inv1023);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,15 +174,37 @@ extern "C" int table_grad_u10_launch(const int32_t* sorted_idx,
                                      const int64_t* perm, const int32_t* wq,
                                      const void* dout, float* out, long long n,
                                      int span, float inv1023, void* stream) {
-  return launch(true, sorted_idx, perm, wq, nullptr, nullptr, nullptr, dout,
-                out, n, span, inv1023, stream);
+  return launch<Weights::kU10, __nv_bfloat16>(
+      sorted_idx, perm, wq, nullptr, nullptr, nullptr, nullptr, dout, out, n,
+      span, inv1023, stream);
 }
 
+// bf16 != 0: wx, wy, wz and dout are bf16; else float32.
 extern "C" int table_grad_w3_launch(const int32_t* sorted_idx,
-                                    const int64_t* perm, const float* wx,
-                                    const float* wy, const float* wz,
+                                    const int64_t* perm, const void* wx,
+                                    const void* wy, const void* wz,
                                     const void* dout, float* out, long long n,
-                                    int span, float inv1023, void* stream) {
-  return launch(false, sorted_idx, perm, nullptr, wx, wy, wz, dout, out, n,
-                span, inv1023, stream);
+                                    int span, int bf16, void* stream) {
+  if (bf16) {
+    return launch<Weights::kW3, __nv_bfloat16>(sorted_idx, perm, nullptr, wx, wy,
+                                               wz, nullptr, dout, out, n, span,
+                                               0.f, stream);
+  }
+  return launch<Weights::kW3, float>(sorted_idx, perm, nullptr, wx, wy, wz,
+                                     nullptr, dout, out, n, span, 0.f, stream);
+}
+
+// bf16 != 0: w8 (N, 8) and dout are bf16; else float32.
+extern "C" int table_grad_w8_launch(const int32_t* sorted_idx,
+                                    const int64_t* perm, const void* w8,
+                                    const void* dout, float* out, long long n,
+                                    int span, int bf16, void* stream) {
+  if (bf16) {
+    return launch<Weights::kW8, __nv_bfloat16>(sorted_idx, perm, nullptr,
+                                               nullptr, nullptr, nullptr, w8,
+                                               dout, out, n, span, 0.f, stream);
+  }
+  return launch<Weights::kW8, float>(sorted_idx, perm, nullptr, nullptr,
+                                     nullptr, nullptr, w8, dout, out, n, span,
+                                     0.f, stream);
 }

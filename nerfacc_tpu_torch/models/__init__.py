@@ -1,4 +1,4 @@
-from .hash_soa import HashGridEncoderFused, grid_resolutions
+from .hash_soa import HashGridEncoderFused, HashGridEncoderGrouped, grid_resolutions
 from .ngp import NGPRadianceField
 
-__all__ = ["HashGridEncoderFused", "NGPRadianceField", "grid_resolutions"]
+__all__ = ["HashGridEncoderFused", "HashGridEncoderGrouped", "NGPRadianceField", "grid_resolutions"]

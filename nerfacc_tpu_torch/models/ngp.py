@@ -1,6 +1,7 @@
-"""Instant-NGP radiance field: fused hash grid plus two small MLPs.
+"""Instant-NGP radiance field: a hash grid plus two small MLPs.
 
-Port of ``nerfacc_tpu/models/ngp.py:39-254`` for the fused encoder.
+Port of ``nerfacc_tpu/models/ngp.py:39-254`` for the fused and grouped
+encoders (``encoder_type``).
 Parameters are initialised as flax initialises them (``lecun_normal``
 kernels, i.e. a normal truncated at two standard deviations; zero biases;
 the table uniform in ``[0, 2e-4)``) from a ``torch.Generator`` on the CPU, so
@@ -26,7 +27,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .encoding import spherical_harmonics_deg4
-from .hash_soa import HashGridEncoderFused
+from .hash_soa import HashGridEncoderFused, HashGridEncoderGrouped
 
 Tensor = torch.Tensor
 
@@ -90,6 +91,9 @@ class NGPRadianceField(nn.Module):
         log2_hashmap_size: int = 19,
         mlp_width: int = 64,
         *,
+        encoder_type: str = "fused",
+        table_grad: str = "factor",
+        factor_pack: str = "u10",
         compute_dtype: Optional[torch.dtype] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
@@ -105,9 +109,10 @@ class NGPRadianceField(nn.Module):
             torch.tensor(list(aabb), dtype=torch.float32, device=device),
             persistent=False,  # configuration, not a weight
         )
-        # Each fused row stores 8 corners, so the per-level row count drops
-        # 8x and the parameter budget matches the reference layout.
-        self.encoder = HashGridEncoderFused(
+        # Each fused or grouped row stores 8 corners, so the per-level row
+        # count drops 8x and the parameter budget matches the reference
+        # layout (2^19 entries x 2 features == 2^16 rows x 8 corners x 2).
+        enc_kw = dict(
             n_levels=n_levels,
             n_features_per_level=n_features_per_level,
             log2_hashmap_size=log2_hashmap_size - 3,
@@ -117,6 +122,16 @@ class NGPRadianceField(nn.Module):
             device=device,
             generator=generator,
         )
+        if encoder_type == "fused":
+            self.encoder = HashGridEncoderFused(table_grad=table_grad, factor_pack=factor_pack, **enc_kw)
+        elif encoder_type == "grouped":
+            # Its table gradient has one route: K6 under bf16, autograd in
+            # float32.
+            if (table_grad, factor_pack) != ("factor", "u10"):
+                raise ValueError("the grouped encoder takes no table_grad or factor_pack")
+            self.encoder = HashGridEncoderGrouped(**enc_kw)
+        else:
+            raise ValueError(f"encoder_type {encoder_type!r} not in ('fused', 'grouped')")
         width = mlp_width
         self.mlp_base = nn.Sequential(
             _lecun_linear(self.encoder.latent_dim, width, generator),

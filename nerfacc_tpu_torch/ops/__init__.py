@@ -9,10 +9,18 @@ from .table_grad import (
     cell_max,
     cell_max_plain,
     hash_lookup_combine3,
+    hash_lookup_combine_pos,
+    hash_table_lookup,
+    table_grad_pos,
+    table_grad_pos_plain,
+    table_grad_sorted,
+    table_grad_sorted_plain,
     table_grad_u10,
     table_grad_u10_plain,
     table_grad_w3,
     table_grad_w3_plain,
+    table_grad_w8,
+    table_grad_w8_plain,
 )
 
 __all__ = [
@@ -20,10 +28,18 @@ __all__ = [
     "cell_max",
     "cell_max_plain",
     "hash_lookup_combine3",
+    "hash_lookup_combine_pos",
+    "hash_table_lookup",
     "occupancy_query",
     "occupancy_query_plain",
+    "table_grad_pos",
+    "table_grad_pos_plain",
+    "table_grad_sorted",
+    "table_grad_sorted_plain",
     "table_grad_u10",
     "table_grad_u10_plain",
     "table_grad_w3",
     "table_grad_w3_plain",
+    "table_grad_w8",
+    "table_grad_w8_plain",
 ]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Needs an NVIDIA GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
+K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6.  Needs an NVIDIA
+GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
 imports JAX, hence ``--noconftest``)::
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -172,3 +173,87 @@ def test_cell_max_kernel_is_exact_on_the_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, cell_max_plain(ids, vals, n_cells))
     assert torch.equal(got, library)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_rows", [(1, 64), (1000, 4096), (300_000, 16384)])
+def test_k4_modes_and_k5_match_plain_versions_on_the_card(cuda, n, n_rows):
+    from nerfacc_tpu_torch.ops.table_grad import (
+        corner_weights,
+        table_grad_sorted,
+        table_grad_sorted_plain,
+        table_grad_w3,
+        table_grad_w3_plain,
+        table_grad_w8,
+        table_grad_w8_plain,
+    )
+
+    rng = np.random.default_rng(n + 1)
+    sorted_idx, perm, w, dout = _sorted_factors(rng, n, n_rows, cuda)
+    bf = torch.bfloat16
+    w8 = corner_weights(*w)
+    dg = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(cuda)
+    runs = [
+        (table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, *(c.to(bf) for c in w), dout.to(bf), n_rows)),
+        (table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8.to(bf), dout.to(bf), n_rows)),
+        (table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8, dout, n_rows)),
+        (table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg.to(bf), n_rows)),
+        (table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg, n_rows)),
+    ]
+    untouched = torch.bincount(sorted_idx.long(), minlength=n_rows) == 0
+    for kernel, plain, args in runs:
+        before = kernel.launches
+        got = kernel(*args)
+        assert kernel.launches == before + 1
+        want = plain(*args)
+        torch.cuda.synchronize()
+        # The same terms summed in float32 in another order; rows that no
+        # sample names stay zero.
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert not got[untouched].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5000, 200_000])
+def test_k6_matches_its_plain_version_on_the_card(cuda, n):
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_pos_plain
+
+    enc = HashGridEncoderGrouped(log2_hashmap_size=12, device=cuda)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)).to(cuda)
+    xs, ys, zs = (x[:, i].contiguous() for i in range(3))
+    rows = enc.fetch_rows(xs, ys, zs)
+    nf = rows.shape[0]
+    key = (rows * nf + torch.arange(nf, device=cuda)[:, None]).reshape(-1).to(torch.int32)
+    sorted_key, perm = torch.sort(key)
+    dout = torch.from_numpy(rng.standard_normal((nf * n, 4)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    args = (sorted_key, perm, xs, ys, zs, dout, enc.table.shape[0], enc.fetches, 2)
+    before = table_grad_pos.launches
+    got = table_grad_pos(*args)
+    assert table_grad_pos.launches == before + 1
+    want = table_grad_pos_plain(*args)
+    torch.cuda.synchronize()
+    # Equal weights (the same float32 steps, --fmad=false), the same bf16
+    # terms summed in float32 in another order; rows that no fetch names
+    # stay zero.
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    untouched = torch.bincount(rows.reshape(-1), minlength=enc.table.shape[0]) == 0
+    assert not got[untouched].any()
+
+
+@pytest.mark.cuda
+def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_sorted, table_grad_w8
+
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    perm = torch.arange(8, device=cuda)
+    with pytest.raises(ValueError, match="dg"):
+        table_grad_sorted(idx, perm, torch.zeros((8, 64), device=cuda), 16)
+    with pytest.raises(ValueError, match="w8"):
+        table_grad_w8(idx, perm, torch.zeros((8, 8), device=cuda), torch.zeros((8, 16), device=cuda, dtype=torch.bfloat16), 16)
+    enc = HashGridEncoderGrouped(log2_hashmap_size=9, keys_per_row=2, device=cuda)
+    p = torch.zeros(1, device=cuda)
+    with pytest.raises(ValueError, match="32 active columns"):
+        table_grad_pos(idx, perm, p, p, p, torch.zeros((8, 8), device=cuda, dtype=torch.bfloat16), 1024, enc.fetches, 2)

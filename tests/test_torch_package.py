@@ -60,7 +60,7 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present, so the CUDA default is valid here")
     from nerfacc_tpu_torch.datasets.utils import generate_rays
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
-    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused, HashGridEncoderGrouped
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
 
     aabb = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
@@ -68,6 +68,8 @@ def test_entry_points_default_to_the_card():
         NGPRadianceField(aabb=aabb, n_levels=2, log2_hashmap_size=12)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HashGridEncoderFused(n_levels=2, log2_hashmap_size=9)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HashGridEncoderGrouped(log2_hashmap_size=9)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OccGridEstimator(roi_aabb=aabb, resolution=8).init()
     K = np.array([[10.0, 0, 4], [0, 10.0, 4], [0, 0, 1]], np.float32)

@@ -1,6 +1,7 @@
-"""Table gradient (K2, K4-w3), per-cell max (K3) and the fused encoder's
-backward: the port's plain versions against ``nerfacc_tpu.ops.table_grad``
-(Pallas kernels in interpret mode) and ``jax.grad``."""
+"""Table gradient (K2, K4 in its w3 and w8 modes, K5), per-cell max (K3)
+and the fused encoder's backward routes: the port's plain versions against
+``nerfacc_tpu.ops.table_grad`` (Pallas kernels in interpret mode) and
+``jax.grad``."""
 
 import jax
 import jax.numpy as jnp
@@ -14,15 +15,21 @@ from nerfacc_tpu.ops.table_grad import (
     cell_max_sorted,
     table_grad_factors_sorted,
     table_grad_factors_sorted_u10,
+    table_grad_ref,
+    table_grad_sorted as j_table_grad_sorted,
 )
+import nerfacc_tpu_torch.ops.table_grad as tg
 from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused as TEncoder
 from nerfacc_tpu_torch.models.ngp import trunc_exp as t_trunc_exp
 from nerfacc_tpu_torch.ops.table_grad import (
     cell_max,
     cell_max_plain,
+    corner_weights,
     quantize_u10,
+    table_grad_sorted,
     table_grad_u10,
     table_grad_w3,
+    table_grad_w8,
 )
 
 F = 16
@@ -94,6 +101,77 @@ def test_k4_w3_plain_matches_jax_w3_kernel():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
 
 
+def _bf16(a):
+    """Round a float32 array to bf16 values (kept as float32)."""
+    return np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_w8_plain_matches_jax_w8_kernel(dtype):
+    rng = np.random.default_rng(6)
+    n, n_rows = 5000, 512
+    idx, perm, w, dout = _factors(rng, n, n_rows)
+    w8 = corner_weights(*torch.from_numpy(w)).numpy()  # (N, 8) float32 products
+    if dtype == "bfloat16":  # cast once, as the encoder does (hash_soa.py:374-375)
+        w8, dout = _bf16(w8), _bf16(dout)
+    packed = np.concatenate([w8.T, dout.T, np.zeros((32 - 8 - F, n), np.float32)])  # (32, N)
+    want = np.asarray(table_grad_factors_sorted(
+        jnp.asarray(idx[perm]), jnp.asarray(packed[:, perm]).astype(dtype),
+        n_rows=n_rows, F=F, W=256, interpret=True, wpack="w8",
+    ))
+    tdt = getattr(torch, dtype)
+    got = table_grad_w8(
+        torch.from_numpy(idx[perm]), torch.from_numpy(perm), torch.from_numpy(w8).to(tdt),
+        torch.from_numpy(dout).to(tdt), n_rows,
+    )
+    # The same terms (bf16: bf16(w * dout) of bf16 factors) summed in
+    # float32 in another order: atol 1e-6 of the largest row sum.
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_k4_w3_bf16_plain_matches_jax_w3_kernel():
+    rng = np.random.default_rng(7)
+    n, n_rows = 5000, 512
+    idx, perm, w, dout = _factors(rng, n, n_rows)
+    w, dout = _bf16(w), _bf16(dout)  # the fractions go into the sort as bf16
+    packed = np.concatenate([w, dout.T, np.zeros((32 - 3 - F, n), np.float32)])
+    want = np.asarray(table_grad_factors_sorted(
+        jnp.asarray(idx[perm]), jnp.asarray(packed[:, perm]).astype(jnp.bfloat16),
+        n_rows=n_rows, F=F, W=256, interpret=True, wpack="w3",
+    ))
+    wt = [torch.from_numpy(a).to(torch.bfloat16) for a in w]
+    got = table_grad_w3(
+        torch.from_numpy(idx[perm]), torch.from_numpy(perm), *wt,
+        torch.from_numpy(dout).to(torch.bfloat16), n_rows,
+    )
+    # Corner products rebuilt in float32 and rounded to bf16, terms rounded
+    # to bf16, on both sides; float32 sums in another order.
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_plain_matches_jax_table_grad_sorted_and_its_reference(dtype):
+    rng = np.random.default_rng(8)
+    n, n_rows = 5000, 512
+    idx, perm, _, _ = _factors(rng, n, n_rows)
+    dg = (rng.standard_normal((n, 128)) * rng.choice([1e-3, 1.0], (n, 1))).astype(np.float32)
+    if dtype == "bfloat16":
+        dg = _bf16(dg)
+    sorted_idx = jnp.asarray(idx[perm])
+    dg_sorted = jnp.asarray(dg[perm]).astype(dtype)
+    want = np.asarray(j_table_grad_sorted(sorted_idx, dg_sorted, n_rows=n_rows, W=256, interpret=True))
+    ref = np.asarray(table_grad_ref(sorted_idx, dg_sorted, n_rows))
+    got = table_grad_sorted(
+        torch.from_numpy(idx[perm]), torch.from_numpy(perm), torch.from_numpy(dg).to(getattr(torch, dtype)),
+        n_rows,
+    ).numpy()
+    # float32 sums of the same values in another order.
+    for w in (want, ref):
+        np.testing.assert_allclose(got, w, rtol=0, atol=1e-6 * np.abs(w).max())
+    untouched = np.bincount(idx, minlength=n_rows) == 0
+    assert untouched.any() and not got[untouched].any()
+
+
 def test_k3_plain_matches_jax_cell_max_and_the_library_call():
     rng = np.random.default_rng(3)
     n_cells = 1 << 15
@@ -115,14 +193,14 @@ def test_k3_plain_matches_jax_cell_max_and_the_library_call():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
-def _encoders(L, log2_t, cdt):
+def _encoders(L, log2_t, cdt, table_grad="factor", factor_pack="u10"):
     jenc = JEncoder(
         n_levels=L, n_features_per_level=F, log2_hashmap_size=log2_t,
-        compute_dtype=None if cdt is None else jnp.bfloat16, table_grad="factor",
+        compute_dtype=None if cdt is None else jnp.bfloat16, table_grad=table_grad,
     )
     tenc = TEncoder(
         n_levels=L, n_features_per_level=F, log2_hashmap_size=log2_t,
-        compute_dtype=cdt, device="cpu",
+        compute_dtype=cdt, table_grad=table_grad, factor_pack=factor_pack, device="cpu",
     )
     return jenc, tenc
 
@@ -165,6 +243,58 @@ def test_encoder_table_gradient_matches_jax_grad(cdt):
     # Zero gradient to the positions, as the JAX factor path gives.
     assert not np.asarray(jg_x).any()
     assert xt.grad is not None and not xt.grad.any()
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "table_grad,factor_pack", [("pallas", "u10"), ("factor", "w3"), ("factor", "w8")],
+    ids=["pallas-K5", "factor-w3", "factor-w8"],
+)
+def test_encoder_other_table_grad_routes_match_jax_grad(table_grad, factor_pack, cdt, monkeypatch):
+    L, log2_t, n = 3, 10, 3000
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-0.05, 1.05, size=(n, 3)).astype(np.float32)
+    r = rng.standard_normal((n, L * F)).astype(np.float32)
+    jenc, tenc = _encoders(L, log2_t, cdt, table_grad, factor_pack)
+    params = jenc.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    # The JAX package picks the factor packing from the environment at trace
+    # time (tests/test_models.py:594-647).
+    monkeypatch.setenv("NERFACC_FACTOR_PACK", factor_pack)
+    jax.clear_caches()
+    try:
+        jout = np.asarray(jenc.apply(params, jnp.asarray(x)).astype(jnp.float32))
+        jg_table = jax.grad(
+            lambda p: jnp.sum(jenc.apply(p, jnp.asarray(x)).astype(jnp.float32) * r)
+        )(params)
+    finally:
+        monkeypatch.delenv("NERFACC_FACTOR_PACK")
+        jax.clear_caches()
+    jg_table = np.asarray(jg_table["params"]["table"])
+
+    # The route's wrapper runs once (its plain version, on the CPU).
+    wrapper = {"pallas": "table_grad_sorted", "w3": "table_grad_w3", "w8": "table_grad_w8"}[
+        table_grad if table_grad == "pallas" else factor_pack
+    ]
+    calls, real = [], getattr(tg, wrapper)
+    monkeypatch.setattr(tg, wrapper, lambda *a: calls.append(a[-1]) or real(*a))
+
+    tenc.load_state_dict({"table": torch.from_numpy(np.array(params["params"]["table"]))})
+    out = tenc(torch.from_numpy(x))
+    (out.float() * torch.from_numpy(r)).sum().backward()
+    assert calls == [L * 2**log2_t]
+    if cdt is None:
+        # As test_encoder_table_gradient_matches_jax_grad's float32 case.
+        np.testing.assert_allclose(out.detach().numpy(), jout, rtol=1e-6, atol=1e-10)
+    else:
+        np.testing.assert_allclose(
+            out.detach().float().numpy(), jout, rtol=0, atol=2e-2 * np.abs(jout).max()
+        )
+    # Both sides round the same terms (bf16: the einsum's bf16(w * dout) for
+    # K5, the kernels' factor roundings for K4) and sum them in float32 in
+    # another order: atol 1e-6 of the largest entry.
+    np.testing.assert_allclose(
+        tenc.table.grad.numpy(), jg_table, rtol=0, atol=1e-6 * np.abs(jg_table).max()
+    )
 
 
 def test_trunc_exp_gradient_clamps_at_15():

@@ -1,6 +1,7 @@
 """The training path: scan gradients, ``rendering(seg_bounds=...)`` forward
 and backward, and one whole NGP-occ train step (``bench.py:59-214`` at a
-small size), each against the JAX package on the same inputs.
+small size, with the fused encoder and with the grouped tcnn-shape one),
+each against the JAX package on the same inputs.
 
 The train step draws its stratified jitter from a ``jax.random`` key as
 ``rendering.py:137-142`` does; the same numbers go to the port.
@@ -24,7 +25,7 @@ from nerfacc_tpu_torch import scan as tscan
 from nerfacc_tpu_torch.convert import field_from_jax
 from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator as TEstimator
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField as TField
-from nerfacc_tpu_torch.ops.table_grad import table_grad_u10, table_grad_w3
+from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10, table_grad_w3
 from nerfacc_tpu_torch.rendering import gather_ray_od
 from nerfacc_tpu_torch.rendering import occgrid_render_rays as t_render
 from nerfacc_tpu_torch.volrend import rendering as t_rendering
@@ -115,12 +116,17 @@ def test_rendering_with_seg_bounds_matches_jax_forward_and_backward():
     assert float(op.detach().max()) > 0.5
 
 
-def _train_setup(cdt):
+FUSED = dict(encoder_type="fused", n_levels=2, n_features_per_level=16)
+# The tcnn shape (16 levels x 2 features) on the grouped encoder, T = 2^9.
+GROUPED = dict(encoder_type="grouped", n_levels=16, n_features_per_level=2)
+
+
+def _train_setup(cdt, enc=FUSED):
     est_j = JEstimator(AABB, 32, 1, 2)
     est_t = TEstimator(AABB, 32, 1, 2)
     js = est_j.set_binaries(est_j.init(), jnp.asarray(_shell(32)))
     ts = est_t.set_binaries(est_t.init("cpu"), torch.from_numpy(_shell(32)))
-    cfg = dict(n_levels=2, n_features_per_level=16, log2_hashmap_size=12, mlp_width=16, geo_feat_dim=15)
+    cfg = dict(enc, log2_hashmap_size=12, mlp_width=16, geo_feat_dim=15)
     jfield = JField(aabb=AABB, compute_dtype=None if cdt is None else jnp.bfloat16, table_grad="factor", **cfg)
     params = jfield.init(jax.random.PRNGKey(0), jnp.zeros((8, 3)), jnp.zeros((8, 3)))
     tfield = TField(aabb=AABB, compute_dtype=cdt, device="cpu", **cfg)
@@ -179,7 +185,17 @@ def _torch_step(est, state, field, rays_o, rays_d, pixels, jitter):
 
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
 def test_one_train_step_matches_jax(cdt):
-    est_j, est_t, js, ts, jfield, params, tfield = _train_setup(cdt)
+    _check_one_train_step(cdt, FUSED)
+
+
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_one_grouped_train_step_matches_jax(cdt):
+    # bf16: the table gradient through K6's plain version; float32: autograd.
+    _check_one_train_step(cdt, GROUPED)
+
+
+def _check_one_train_step(cdt, enc):
+    est_j, est_t, js, ts, jfield, params, tfield = _train_setup(cdt, enc)
     rng = np.random.default_rng(0)
     o, d = _rays(rng, N_RAYS)
     pixels = rng.random((N_RAYS, 3), dtype=np.float32)
@@ -189,13 +205,13 @@ def test_one_train_step_matches_jax(cdt):
     loss_j, n_j, grads_j, params_j = _jax_step(
         est_j, js, jfield, params, jnp.asarray(o), jnp.asarray(d), jnp.asarray(pixels), key
     )
-    before = table_grad_u10.launches, table_grad_w3.launches
+    before = table_grad_u10.launches, table_grad_w3.launches, table_grad_pos.launches
     loss_t, n_t, grads_t, extras = _torch_step(
         est_t, ts, tfield, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(pixels),
         torch.from_numpy(jitter),
     )
     # CPU tensors take the plain versions: no kernel launches.
-    assert (table_grad_u10.launches, table_grad_w3.launches) == before
+    assert (table_grad_u10.launches, table_grad_w3.launches, table_grad_pos.launches) == before
 
     assert n_t == n_j and 0.5 * CAP < n_t <= CAP
     # f32: rtol 1e-4 as tests/test_models.py:539; bf16: XLA and PyTorch round
