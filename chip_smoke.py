@@ -2,8 +2,13 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
-1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``.
+    python3 chip_smoke.py --phases 1,5   # a subset: build and kernel checks only
+
+Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
+subset, phase 1 always, and prints the kernel table only when every phase
+ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
+1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
+   what ``ptxas -v`` says of K6 (registers, shared memory, spills).
 2. kernel K1 (occupancy query) against its plain PyTorch version on the
    card, for exact equality, at the render shape and on adversarial points;
    timings with CUDA events.
@@ -19,7 +24,8 @@ Phases (any failure exits non-zero):
    the training shapes, with timings beside each kernel's bound: K2 (bf16),
    K4 (w3 in float32 and bf16, w8 in bf16 and float32) and K5 (bf16) at
    2^21 sample-levels over 4 x 2^15 rows, K6 at 2^19 samples x 8 fetches
-   over 2 x 2^16 rows, and K3 (per-cell max) at 2^20 draws.
+   over 2 x 2^16 rows, and K3 (per-cell max) at 2^20 draws; each kernel's
+   share of its bound, the zeroing of the output and the sorts.
 6. train: the NGP-occ train step of ``bench.py:59-294`` at its full width
    (16384 rays, 2^19 samples, bf16 compute, the fused encoder L4 x F16),
    3 warm-up steps, 30 timed steps and 8 timed occupancy updates;
@@ -45,6 +51,7 @@ The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -363,12 +370,42 @@ def traversal_card_vs_cpu(est, shell, rays_o, rays_d, jitter, dev) -> None:
               f"{int(b['kept'].sum())}, integer fields equal, t max abs err {t_err:.3e}", flush=True)
 
 
+def shell_points(rng, n: int, dev) -> torch.Tensor:
+    """``(n, 3)`` sample points as the train path meets them: around
+    bench.py's occupancy shell, in the field's [0, 1] box."""
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    radius = 0.225 * (1.0 + rng.uniform(-0.18, 0.18, size=(n, 1)))
+    return torch.from_numpy((0.5 + radius * dirs).astype(np.float32)).to(dev)
+
+
+def k6_inputs(u, rng, dev) -> tuple:
+    """K6's arguments at the grouped train shape: the points ``u`` through
+    the tcnn-shape encoder (2 spans of 2^16 rows, 8 fetches a sample), the
+    sorted (row, fetch) keys and their permutation, bf16 cotangents from
+    ``rng``, with the fetch constants; then the unsorted keys and the mask of
+    rows that no fetch names."""
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.ops.table_grad import FetchConsts
+
+    genc = HashGridEncoderGrouped(log2_hashmap_size=16, device=dev)
+    gx, gy, gz = (u[:, i].contiguous() for i in range(3))
+    g_rows = genc.fetch_rows(gx, gy, gz)
+    (nf, n), g_n_rows = g_rows.shape, genc.table.shape[0]
+    g_key = (g_rows * nf + torch.arange(nf, device=dev)[:, None]).reshape(-1).to(torch.int32)
+    g_sorted, g_perm = torch.sort(g_key)
+    g_dout = torch.from_numpy((rng.standard_normal((nf * n, 4)) * 1e-3).astype(np.float32)).to(dev).to(torch.bfloat16)
+    g_untouched = torch.bincount(g_rows.reshape(-1), minlength=g_n_rows) == 0
+    args = (g_sorted, g_perm, gx, gy, gz, g_dout, g_n_rows, genc.fetches, 2,
+            FetchConsts(genc._fetch_res, genc._fetch_is_key, genc._fetch_win))
+    return args, g_key, g_untouched
+
+
 def kernels_vs_plain(dev) -> dict:
     """Phase 5: K2, K4 (its four modes), K5, K6 and K3 against their plain
     versions at the training shapes, and their times."""
-    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused, HashGridEncoderGrouped
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused
     from nerfacc_tpu_torch.ops.table_grad import (
-        FetchConsts,
         cell_max,
         cell_max_plain,
         corner_weights,
@@ -386,15 +423,11 @@ def kernels_vs_plain(dev) -> dict:
     )
 
     rng = np.random.default_rng(1)
-    # Sample points as the train path meets them: around bench.py's
-    # occupancy shell, in the field's [0, 1] box, through the bench
-    # encoder's rows (4 levels of 2^15 rows; the coarsest, 16^3 cells, is
-    # indexed densely, so a quarter of the samples pile onto 4096 rows).
+    # Sample points around the occupancy shell through the bench encoder's
+    # rows (4 levels of 2^15 rows; the coarsest, 16^3 cells, is indexed
+    # densely, so a quarter of the samples pile onto 4096 rows).
     n = TRAIN_CAPACITY
-    dirs = rng.normal(size=(n, 3))
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    radius = 0.225 * (1.0 + rng.uniform(-0.18, 0.18, size=(n, 1)))
-    u = torch.from_numpy((0.5 + radius * dirs).astype(np.float32)).to(dev)
+    u = shell_points(rng, n, dev)
     enc = HashGridEncoderFused(
         n_levels=4, n_features_per_level=16, log2_hashmap_size=15, device=dev
     )
@@ -421,15 +454,9 @@ def kernels_vs_plain(dev) -> dict:
     print(f"K2/K4/K5 inputs: {n_sl} sample-levels over {n_rows} rows, level 0 on {rows_hit} rows", flush=True)
 
     # K6 at the grouped train shape: the same points through the tcnn-shape
-    # encoder (2 spans of 2^16 rows, 8 fetches a sample).
-    genc = HashGridEncoderGrouped(log2_hashmap_size=16, device=dev)
-    gx, gy, gz = (u[:, i].contiguous() for i in range(3))
-    g_rows = genc.fetch_rows(gx, gy, gz)
-    nf, g_n_rows = g_rows.shape[0], genc.table.shape[0]
-    g_key = (g_rows * nf + torch.arange(nf, device=dev)[:, None]).reshape(-1).to(torch.int32)
-    g_sorted, g_perm = torch.sort(g_key)
-    g_dout = torch.from_numpy((rng.standard_normal((nf * n, 4)) * 1e-3).astype(np.float32)).to(dev).to(bf)
-    g_untouched = torch.bincount(g_rows.reshape(-1), minlength=g_n_rows) == 0
+    # encoder.
+    k6_args, g_key, g_untouched = k6_inputs(u, rng, dev)
+    nf, g_n_rows = len(k6_args[7]), k6_args[6]
     print(f"K6 inputs: {n} samples x {nf} fetches over {g_n_rows} rows", flush=True)
 
     out = {}
@@ -440,9 +467,7 @@ def kernels_vs_plain(dev) -> dict:
         ("K4-w8-bf16", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8_bf, dout_bf, n_rows), untouched),
         ("K4-w8", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8, dout, n_rows), untouched),
         ("K5", table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg, n_rows), untouched),
-        ("K6", table_grad_pos, table_grad_pos_plain,
-         (g_sorted, g_perm, gx, gy, gz, g_dout, g_n_rows, genc.fetches, 2,
-          FetchConsts(genc._fetch_res, genc._fetch_is_key, genc._fetch_win)), g_untouched),
+        ("K6", table_grad_pos, table_grad_pos_plain, k6_args, g_untouched),
     ):
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
@@ -490,12 +515,16 @@ def kernels_vs_plain(dev) -> dict:
     # operations each) and 32 terms of a multiply and an add.
     out["K6"]["ops"] = n_pairs * (2 * 46 + 32 * 2)
     for label, o in out.items():
+        bound = o["bytes"] / HBM_BYTES_PER_S * 1e3
         print(
             f"{label}: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, "
-            f"bound {o['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms ({o['bytes']} B at 3.35 TB/s)"
+            f"bound {bound:.4f} ms ({o['bytes']} B at 3.35 TB/s), {100 * bound / o['ms']:.1f}% of bound"
             + (f", index_add_ {o['library_ms']:.4f} ms" if "library_ms" in o else ""),
             flush=True,
         )
+    for rows in sorted({n_rows, g_n_rows}):
+        print(f"torch.zeros of a ({rows}, 128) float32 output (inside each kernel's time): "
+              f"{time_ms(lambda: torch.zeros((rows, 128), device=dev)):.4f} ms", flush=True)
     print(f"torch.sort of {n_sl} int32 rows (outside K2, K4, K5): {sort_ms:.4f} ms", flush=True)
     print(f"torch.sort of {n_pairs} int32 (row, fetch) keys (outside K6): "
           f"{time_ms(lambda: torch.sort(g_key)):.4f} ms", flush=True)
@@ -755,41 +784,19 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
     return launches
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
-    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
-    from nerfacc_tpu_torch.datasets.utils import generate_rays
+def k1_vs_plain(dev):
+    """Phase 2: K1 against its plain version on the render shape and on
+    adversarial points, and its times.  Returns the estimator and its state
+    (for phase 3) and K1's numbers for the kernel table."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.grid import _march_ladder
-    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
-    from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops.occ_query import (
         _query_soa,
         bitpack_grid,
         occupancy_query,
         occupancy_query_plain,
     )
-    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays_test
 
-    # Full float32 products: TF32 would keep about three decimal digits.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    # ---- 1. card and build ------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
-    print(f"card: {card_line}", flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    _build.build()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {_build.kernel_names()}", flush=True)
-
-    # ---- 2. K1 against its plain version -----------------------------------
     rng = np.random.default_rng(0)
     est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1)
     state = est.set_binaries(est.init(dev), torch.from_numpy(shell_binaries(GRID_RES)))
@@ -850,8 +857,19 @@ def main() -> None:
         f"bound {k1_bound_ms:.4f} ms ({k1_bytes} B at 3.35 TB/s)",
         flush=True,
     )
+    return est, state, dict(err=k1_max_err, ms=k1_ms, plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops)
 
-    # ---- 3. serve: one 800x800 view at full width --------------------------
+
+def serve(dev, est, state, crop: bool) -> None:
+    """Phase 3: one 800x800 view at full width through the port, K1 launched
+    on that path, and a profile of every 8th chunk; then, if ``crop``, phase
+    4: a 64x64 crop on the card against the CPU."""
+    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
+    from nerfacc_tpu_torch.datasets.utils import generate_rays
+    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays_test
+
     gen = torch.Generator().manual_seed(0)
     field = NGPRadianceField(aabb=AABB, device=dev, generator=gen, **FIELD_CFG)
     field.eval()
@@ -927,7 +945,9 @@ def main() -> None:
         "serve", "profile_serve.txt",
     )
 
-    # ---- 4. card against CPU on a 64x64 crop --------------------------------
+    if not crop:
+        return
+    # Phase 4: card against CPU on a 64x64 crop.
     r0 = (HEIGHT - CROP) // 2
     c0 = (WIDTH - CROP) // 2
     crop_o = rays.origins[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
@@ -958,52 +978,114 @@ def main() -> None:
     if max(errs.values()) > 1e-4:
         fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
 
-    # ---- 5. the table-gradient kernels and K3 against their plain versions --
-    kt = kernels_vs_plain(dev)
 
-    # ---- 6. train at full width ---------------------------------------------
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+# A phase that needs another's results: serve needs phase 2's grid, the crop
+# the served field, and phase 8 the weights trained in phases 6 and 7.
+NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
+
+
+def parse_phases(argv) -> tuple:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--phases", default=",".join(map(str, ALL_PHASES)),
+        help="comma-separated phases to run (default: all; phase 1 always runs)",
+    )
+    args = ap.parse_args(argv)
+    try:
+        run = {int(p) for p in args.phases.split(",") if p.strip()} | {1}
+    except ValueError:
+        ap.error(f"--phases: not a list of numbers: {args.phases!r}")
+    if not run <= set(ALL_PHASES):
+        ap.error(f"--phases: phases are {ALL_PHASES}")
+    for phase, need in NEEDS.items():
+        if phase in run and not set(need) <= run:
+            ap.error(f"--phases: phase {phase} needs phase(s) {need}")
+    return tuple(sorted(run))
+
+
+def main(argv=None) -> None:
+    run = parse_phases(argv)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
+    from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10
 
-    trained, train_launches, k1_train_err = train_full_width(
-        dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_k1=True
+    # Full float32 products: TF32 would keep about three decimal digits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ---- 1. card and build ------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
     )
-    k1_max_err = max(k1_max_err, k1_train_err)
+    card_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    print(f"card: {card_line}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; phases {run}", flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s: {_build.kernel_names()}", flush=True)
+    for line in _build.ptxas_report("table_grad_pos").splitlines():
+        if any(word in line for word in ("Compiling entry", "Used", "spill")):
+            print(f"K6 ptxas: {line.replace('ptxas info    :', '').strip()}", flush=True)
+
+    # ---- 2. K1 against its plain version; 3. serve; 4. crop against CPU ---
+    if 2 in run:
+        est, state, k1 = k1_vs_plain(dev)
+    if 3 in run:
+        serve(dev, est, state, crop=4 in run)
+
+    # ---- 5. the table-gradient kernels and K3 against their plain versions --
+    if 5 in run:
+        kt = kernels_vs_plain(dev)
+
+    # ---- 6. train at full width ---------------------------------------------
+    if 6 in run:
+        trained, train_launches, k1_train_err = train_full_width(
+            dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_k1=True
+        )
 
     # ---- 7. train at full width, tcnn shape (grouped encoder) ---------------
-    grouped, grouped_launches, _ = train_full_width(
-        dev, GROUPED_FIELD_CFG, table_grad_pos, "K6", "profile_train_grouped.txt", check_k1=False
-    )
+    if 7 in run:
+        grouped, grouped_launches, _ = train_full_width(
+            dev, GROUPED_FIELD_CFG, table_grad_pos, "K6", "profile_train_grouped.txt", check_k1=False
+        )
 
     # ---- 8. train steps, card against CPU -----------------------------------
     def weights(field):
         return {k: v.detach().clone() for k, v in field.state_dict().items()}
 
-    route_launches = train_card_vs_cpu(dev, weights(trained), weights(grouped))
+    if 8 in run:
+        route_launches = train_card_vs_cpu(dev, weights(trained), weights(grouped))
 
-    # K1's launches here are the fused train path's (phase 6); the serve
-    # path's are printed in phase 3.  K2, K3: phase 6; K6: phase 7; K4 and
-    # K5: their routes' card steps in phase 8.
-    src = "nerfacc_tpu_torch/csrc/"
-    tg_py = "nerfacc_tpu/ops/table_grad.py:"
-    kernels = [
-        kernel_row("occupancy_query", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
-                   train_launches["K1"], k1_max_err, k1_ms, k1_plain_ms, k1_bytes, k1_ops, None),
-    ] + [
-        kernel_row(name, src + file, tg_py + line, launches, kt[key]["err"], kt[key]["ms"],
-                   kt[key]["plain_ms"], kt[key]["bytes"], kt[key]["ops"], kt[key].get("library_ms"))
-        for name, key, file, line, launches in (
-            ("table_grad_u10", "K2", "table_grad.cu", "749", train_launches["K2"]),
-            ("table_grad_w3", "K4-w3", "table_grad.cu", "572", route_launches["float32"]),
-            ("table_grad_w3_bf16", "K4-w3-bf16", "table_grad.cu", "572", route_launches["w3 bf16"]),
-            ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),
-            ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),
-            ("table_grad_sorted", "K5", "table_grad_sorted.cu", "245", route_launches["pallas bf16"]),
-            ("table_grad_pos", "K6", "table_grad_pos.cu", "1488", grouped_launches["K6"]),
-            ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
-        )
-    ]
     print(card_line, flush=True)  # nvidia-smi's name and power limit
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if run == ALL_PHASES:
+        # K1's launches here are the fused train path's (phase 6); the serve
+        # path's are printed in phase 3.  K2, K3: phase 6; K6: phase 7; K4 and
+        # K5: their routes' card steps in phase 8.
+        src = "nerfacc_tpu_torch/csrc/"
+        tg_py = "nerfacc_tpu/ops/table_grad.py:"
+        kernels = [
+            kernel_row("occupancy_query", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       train_launches["K1"], max(k1["err"], k1_train_err), k1["ms"], k1["plain_ms"],
+                       k1["bytes"], k1["ops"], None),
+        ] + [
+            kernel_row(name, src + file, tg_py + line, launches, kt[key]["err"], kt[key]["ms"],
+                       kt[key]["plain_ms"], kt[key]["bytes"], kt[key]["ops"], kt[key].get("library_ms"))
+            for name, key, file, line, launches in (
+                ("table_grad_u10", "K2", "table_grad.cu", "749", train_launches["K2"]),
+                ("table_grad_w3", "K4-w3", "table_grad.cu", "572", route_launches["float32"]),
+                ("table_grad_w3_bf16", "K4-w3-bf16", "table_grad.cu", "572", route_launches["w3 bf16"]),
+                ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),
+                ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),
+                ("table_grad_sorted", "K5", "table_grad_sorted.cu", "245", route_launches["pallas bf16"]),
+                ("table_grad_pos", "K6", "table_grad_pos.cu", "1488", grouped_launches["K6"]),
+                ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
+            )
+        ]
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

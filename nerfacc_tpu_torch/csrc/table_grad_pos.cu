@@ -19,31 +19,78 @@
 // (nerfacc_tpu_torch/ops/table_grad.py:table_grad_pos_plain) repeats the same
 // float32 steps; only the order of the float32 sums differs.
 //
-// Layout of the work: the (row, fetch) pairs come sorted by the key
-// row * n_fetches + fetch (torch.sort, outside the kernel), with the
-// permutation that sorted the fetch-major samples, and one launch covers
-// every fetch.  Each warp reduces one contiguous span of sorted pairs
-// (csrc/sorted_rows.cuh); its 32 lanes are the fetch's 32 active columns
-// (8 * jg * F == 32): lane l is corner l / (jg F), sub-level
-// (l % (jg F)) / F and feature l % F, and computes its own corner weight.
+// The (row, fetch) pairs come sorted by the key row * n_fetches + fetch
+// (torch.sort, outside the kernel), with the permutation that sorted the
+// fetch-major pairs.  One call covers every fetch: a pre-pass that packs the
+// positions, then the tile kernel.  A fetch has 8 * jg * F == 32 active
+// columns, jg * F = 4 a corner.  No two keys may name the same columns of a
+// row, and the encoder's fetches never do: a run is stored, not added, where
+// no other warp holds part of it.
 //
-// What bounds it: device memory.  At the grouped training shape (524,288
-// samples x 8 fetches, 131,072 rows, bf16) it must read a 4 B row, 8 B of
-// bf16 cotangent and (once per sample) 12 B of position, and write a
-// 64 MiB table: 124 MB, 0.037 ms at 3.35 TB/s.  The weights cost some 40
-// float operations per lane and pair, far below the card's rate.
+// What bounds it: device memory.  At the grouped training shape (2^19
+// samples x 8 fetches = 2^22 pairs over 131,072 rows, jg = 2, F = 2, bf16)
+// the function reads a 4 B key and 8 B of cotangent a pair and 12 B of
+// position a sample, and writes a 64 MiB table: 124 MB, 0.037 ms at
+// 3.35 TB/s.  Its arithmetic, 6 axis weights and 16 corner weights a pair
+// (about 92 float operations) and 32 terms of a multiply and an add, is
+// 6.5e8 operations, 0.010 ms at 67 TFLOP/s.  Beyond those bytes the kernel
+// reads the int64 permutation (32 MB) and gathers at random addresses a
+// 16 B position record and 8 B of cotangent a pair, a whole 32 B sector
+// each.
+//
+// Tiling.  A block of 256 threads takes 512 consecutive sorted pairs in two
+// phases split by a barrier.  The design it replaces had a warp's 32 lanes
+// (its columns) walk 128 pairs one at a time, each lane rebuilding its
+// weight and loading the pair's cotangent inside the walk.  Against that:
+//  1. Per-pair work once per pair.  Thread t stages pairs t and t + 256: it
+//     decodes each key once (fetch, row, the window's first column; the
+//     pair's sample in 32-bit arithmetic), builds the jg x 3 axis
+//     weights and the 8 x jg bf16 corner weights once, and stores them in
+//     shared memory with the pair's cotangent and output offset.  The
+//     per-fetch constants (resolutions, key sub-level, j_lo) are copied to
+//     shared memory once a block.  The walk has no integer division and no
+//     weight math: a lane forms bf16 products two at a time
+//     (mul.rn.bf16x2) and adds them.
+//  2. Every load of a tile in flight before the walk.  The keys and the
+//     permutation are read contiguously (streamed: read once), then each
+//     thread issues all its pairs' position and cotangent gathers before it
+//     uses any of them.  The pre-pass makes a pair's position one 16 B
+//     gather, not three of 4 B.
+//  3. The load balance of the sorted spans.  Warp w walks pairs
+//     [64 w, 64 w + 64) of the tile in order, four at a time: the tile is
+//     staged quad-major, so three shared loads bring a lane four pairs'
+//     keys, weights and cotangents.  Lane l is corner l / 4 and window
+//     column l % 4.  A run of equal keys is summed in a register and stored
+//     once; a run that goes on into the previous or the next warp's pairs
+//     (in this tile or the next) is added with atomics, at that boundary
+//     only.  Work is balanced by pairs whatever the key skew: the coarse
+//     grids' long runs become a few warps' atomics, and one key over every
+//     pair stays right.  The output must start zeroed.
+// Four blocks an SM, not the seven that its shared memory would hold: the
+// gathers go through L1, and the coarse fetches' long runs read neighbouring
+// records there, so L1 is worth more than the three blocks (k6_variants.py).
+// No tensor cores: a run's sum is formally weights^T x cotangent, but every
+// term is rounded, bf16(w * d), before the float32 sum, and an MMA adds
+// unrounded products, about a bf16 step a term away from the plain version.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "sorted_rows.cuh"
 
 namespace {
 
 constexpr int kRow = 128;
 constexpr int kMaxFetches = 32;
 constexpr int kMaxJg = 4;
+constexpr int kCols = 4;  // jg * F: a fetch's columns per corner
+constexpr int kThreads = 256;
+constexpr int kTile = 512;  // pairs a block
+constexpr int kPairsPerThread = kTile / kThreads;
+constexpr int kWarpPairs = kTile / (kThreads / 32);  // pairs a warp walks
+// Blocks resident on an SM: their tiles take that much of the SM's 228 KB of
+// shared memory, and the rest of its 256 KB serves as L1 for the gathers.
+constexpr int kBlocksPerSm = 4;
 
 // Per-fetch constants, passed by value (a __grid_constant__ parameter, so the
 // kernel indexes it in place, without a copy to local memory).
@@ -53,127 +100,236 @@ struct Fetches {
   int key_k[kMaxFetches];          // the window's key sub-level, -1 for none
 };
 
-__device__ __forceinline__ float sub_level_weight(float x, float r, bool key) {
-  const float xl = x * r;
-  if (key) return xl - floorf(xl);
-  const float h = xl * 0.5f;
-  return 1.f - fabsf(2.f * (h - floorf(h)) - 1.f);
-}
-
-struct PosOp {
-  struct Sample {
-    int64_t p = 0;  // index of the (fetch, sample) pair, fetch-major
-    float x = 0.f, y = 0.f, z = 0.f;
-    __device__ Sample shfl(int j) const {
-      Sample s;
-      s.p = shfl64(p, j);
-      s.x = __shfl_sync(kAllLanes, x, j);
-      s.y = __shfl_sync(kAllLanes, y, j);
-      s.z = __shfl_sync(kAllLanes, z, j);
-      return s;
-    }
-  };
-
-  const int64_t* perm;
-  const float* xs;
-  const float* ys;
-  const float* zs;
-  const __nv_bfloat16* dout;  // (n_fetches * n, jg * F)
-  float* out;
-  const Fetches* fetches;
-  int64_t n;  // samples
-  int n_fetches, jgf, F;
-  int k, f;        // this lane's sub-level in the window and feature
-  int col0;        // this lane's column without the window offset
-  bool hx, hy, hz;
-  float acc;
-
-  __device__ Sample load(int64_t i) const {
-    Sample s;
-    s.p = __ldg(perm + i);
-    const int64_t sample = s.p % n;
-    s.x = __ldg(xs + sample);
-    s.y = __ldg(ys + sample);
-    s.z = __ldg(zs + sample);
-    return s;
-  }
-
-  __device__ void add(const Sample& s, int key) {
-    const int g = key % n_fetches;
-    const float r = fetches->res[g][k];
-    const bool is_key = fetches->key_k[g] == k;
-    const float wx = sub_level_weight(s.x, r, is_key);
-    const float wy = sub_level_weight(s.y, r, is_key);
-    const float wz = sub_level_weight(s.z, r, is_key);
-    float w = (hx ? wx : 1.f - wx) * (hy ? wy : 1.f - wy);
-    w = bf16_round(w * (hz ? wz : 1.f - wz));
-    const float d = __bfloat162float(__ldg(dout + s.p * jgf + k * F + f));
-    acc += bf16_round(w * d);
-  }
-
-  __device__ void flush(int key, bool atomic) {
-    const int g = key % n_fetches;
-    float* dst = out + static_cast<int64_t>(key / n_fetches) * kRow + col0 +
-                 fetches->j_lo[g] * F;
-    if (atomic) {
-      atomicAdd(dst, acc);
-    } else {
-      *dst = acc;
-    }
-    acc = 0.f;
-  }
+// A tile staged in shared memory, quad-major: w[q][i] holds corner weight i
+// (= c * jg + k) of pairs 4q .. 4q + 3, one bf16 each, and d[q][kf] their
+// cotangents of window column kf, so a lane reads four pairs' operands in one
+// 8-byte load.  Each quad's row is padded by 8 bytes: the eight quads that a
+// warp's 32 threads stage then fall on distinct banks.  About 29 KB at
+// jg = 2 and 46 KB at jg = 4, under the 48 KB of static shared memory.
+template <int JG>
+struct Stage {
+  uint2 w[kTile / 4][8 * JG + 1];
+  uint2 d[kTile / 4][kCols + 1];
+  long long dst[kTile];  // the pair's first output column, row * 128 + j_lo * F
+  int4 key[kTile / 4];   // the pairs' keys, four a quad
+  int key_before, key_after;  // the keys of the pairs just outside the tile
+  float res[kMaxFetches][JG];
+  int key_k[kMaxFetches];
+  int col[kMaxFetches];  // j_lo * F
 };
 
-__global__ void __launch_bounds__(256)
-    table_grad_pos_kernel(const int32_t* __restrict__ sorted_key,
+__device__ __forceinline__ float sub_level_weight(float x, float r, bool key) {
+  const float xl = x * r;
+  const float h = xl * 0.5f;
+  const float tri = 1.f - fabsf(2.f * (h - floorf(h)) - 1.f);
+  return key ? xl - floorf(xl) : tri;
+}
+
+// Two bf16 products, each the exact product rounded once to bf16, as
+// bf16(float(w) * float(d)) is: the float32 product of two bf16 values is
+// exact unless it falls below float32's normal range.
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// The pre-pass: each sample's position as one 16 B record, so a pair
+// gathers one sector of it, not three.
+__global__ void pack_positions_kernel(const float* __restrict__ xs,
+                                      const float* __restrict__ ys,
+                                      const float* __restrict__ zs,
+                                      float4* __restrict__ pos, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) pos[i] = make_float4(__ldcs(xs + i), __ldcs(ys + i), __ldcs(zs + i), 0.f);
+}
+
+template <int JG>
+__global__ void __launch_bounds__(kThreads)
+    table_grad_pos_kernel(const int32_t* __restrict__ keys,
                           const int64_t* __restrict__ perm,
-                          const float* __restrict__ xs,
-                          const float* __restrict__ ys,
-                          const float* __restrict__ zs,
-                          const __nv_bfloat16* __restrict__ dout,
+                          const float4* __restrict__ pos,
+                          const uint2* __restrict__ dout,
                           float* __restrict__ out, int64_t n_pairs, int64_t n,
-                          int span, int n_fetches, int jg, int F, int J,
-                          const __grid_constant__ Fetches fetches) {
-  const int lane = threadIdx.x & 31;
-  const int jgf = jg * F;
-  const int c = lane / jgf;
-  PosOp op;
-  op.perm = perm;
-  op.xs = xs;
-  op.ys = ys;
-  op.zs = zs;
-  op.dout = dout;
-  op.out = out;
-  op.fetches = &fetches;
-  op.n = n;
-  op.n_fetches = n_fetches;
-  op.jgf = jgf;
-  op.F = F;
-  op.k = (lane % jgf) / F;
-  op.f = lane % F;
-  op.col0 = c * J * F + op.k * F + op.f;
-  op.hx = (c >> 2) & 1;
-  op.hy = (c >> 1) & 1;
-  op.hz = c & 1;
-  op.acc = 0.f;
-  sum_sorted_span(sorted_key, n_pairs, span, op);
+                          int n_fetches, const __grid_constant__ Fetches fetches) {
+  constexpr int F = kCols / JG;
+  __shared__ Stage<JG> st;
+  const int tid = threadIdx.x;
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int count =
+      static_cast<int>(n_pairs - begin < kTile ? n_pairs - begin : kTile);
+
+  // ---- 1. stage the tile: contiguous loads, constants, gathers, weights ----
+  int key[kPairsPerThread];
+  int64_t p[kPairsPerThread];
+#pragma unroll
+  for (int m = 0; m < kPairsPerThread; ++m) {
+    const int i = tid + m * kThreads;
+    // Read once: streamed, so they do not evict the gathered records.
+    key[m] = i < count ? __ldcs(keys + begin + i) : 0;
+    p[m] = i < count ? __ldcs(reinterpret_cast<const long long*>(perm) + begin + i) : 0;
+  }
+  if (tid < n_fetches * JG) st.res[tid / JG][tid % JG] = fetches.res[tid / JG][tid % JG];
+  if (tid < n_fetches) {
+    st.key_k[tid] = fetches.key_k[tid];
+    st.col[tid] = fetches.j_lo[tid] * F;
+  }
+  if (tid == 0 && begin > 0) st.key_before = __ldg(keys + begin - 1);
+  if (tid == 32 && begin + count < n_pairs) st.key_after = __ldg(keys + begin + count);
+  __syncthreads();
+
+  int g[kPairsPerThread];
+  float4 q[kPairsPerThread];
+  uint2 dv[kPairsPerThread];
+  int* skey = reinterpret_cast<int*>(st.key);
+#pragma unroll
+  for (int m = 0; m < kPairsPerThread; ++m) {
+    const int i = tid + m * kThreads;
+    g[m] = 0;
+    if (i >= count) continue;
+    g[m] = key[m] % n_fetches;
+    const int row = key[m] / n_fetches;
+    // Pair indices stay below 2^32 (the launch checks n_fetches * n).
+    const uint32_t s = static_cast<uint32_t>(p[m]) % static_cast<uint32_t>(n);
+    q[m] = __ldg(pos + s);
+    dv[m] = __ldg(dout + p[m]);
+    skey[i] = key[m];
+    st.dst[i] = static_cast<long long>(row) * kRow + st.col[g[m]];
+  }
+#pragma unroll
+  for (int m = 0; m < kPairsPerThread; ++m) {
+    const int i = tid + m * kThreads;
+    if (i >= count) continue;
+    float ax[JG][2], ay[JG][2], az[JG][2];  // [k][0] = 1 - w, [k][1] = w
+#pragma unroll
+    for (int k = 0; k < JG; ++k) {
+      const float r = st.res[g[m]][k];
+      const bool is_key = st.key_k[g[m]] == k;
+      ax[k][1] = sub_level_weight(q[m].x, r, is_key);
+      ay[k][1] = sub_level_weight(q[m].y, r, is_key);
+      az[k][1] = sub_level_weight(q[m].z, r, is_key);
+      ax[k][0] = 1.f - ax[k][1];
+      ay[k][0] = 1.f - ay[k][1];
+      az[k][0] = 1.f - az[k][1];
+    }
+    unsigned short* w = reinterpret_cast<unsigned short*>(st.w[i >> 2]) + (i & 3);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+#pragma unroll
+      for (int k = 0; k < JG; ++k) {
+        const float wc = (ax[k][(c >> 2) & 1] * ay[k][(c >> 1) & 1]) * az[k][c & 1];
+        w[4 * (c * JG + k)] = __bfloat16_as_ushort(__float2bfloat16_rn(wc));
+      }
+    }
+    unsigned short* d = reinterpret_cast<unsigned short*>(st.d[i >> 2]) + (i & 3);
+    d[0] = static_cast<unsigned short>(dv[m].x);
+    d[4] = static_cast<unsigned short>(dv[m].x >> 16);
+    d[8] = static_cast<unsigned short>(dv[m].y);
+    d[12] = static_cast<unsigned short>(dv[m].y >> 16);
+  }
+  __syncthreads();
+
+  // ---- 2. the walk: warp w sums pairs [sb, se) of the tile ----------------
+  const int sb = (tid >> 5) * kWarpPairs;
+  if (sb >= count) return;  // uniform across the warp
+  const int se = sb + kWarpPairs < count ? sb + kWarpPairs : count;
+  const int lane = tid & 31;
+  const int kf = lane & (kCols - 1);           // window column: k * F + f
+  const int widx = (lane >> 2) * JG + kf / F;  // corner c = lane / 4, sub-level k
+  const int col0 = (lane >> 2) * (kRow / 8) + kf;
+
+  int cur = skey[sb];
+  long long cur_dst = st.dst[sb];
+  // The first run is shared with the pairs before if it started there.
+  const bool head_shared =
+      begin + sb > 0 && (sb > 0 ? skey[sb - 1] : st.key_before) == cur;
+  bool head = true;
+  float acc = 0.f;
+  for (int qd = sb / 4; qd < (se + 3) / 4; ++qd) {
+    const int4 k4 = st.key[qd];
+    const uint2 w4 = st.w[qd][widx];
+    const uint2 d4 = st.d[qd][kf];
+    const uint32_t t01 = mul_bf16x2(w4.x, d4.x);
+    const uint32_t t23 = mul_bf16x2(w4.y, d4.y);
+    const int ks[4] = {k4.x, k4.y, k4.z, k4.w};
+    const float ts[4] = {lo_bf16(t01), hi_bf16(t01), lo_bf16(t23), hi_bf16(t23)};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 4 * qd + r;
+      if (j >= se) break;  // the tile's last, partial quad
+      if (ks[r] != cur) {  // uniform: every lane reads the same key
+        float* dst = out + cur_dst + col0;
+        if (head && head_shared) {
+          atomicAdd(dst, acc);
+        } else {
+          *dst = acc;
+        }
+        head = false;
+        cur = ks[r];
+        cur_dst = st.dst[j];
+        acc = 0.f;
+      }
+      acc += ts[r];
+    }
+  }
+  // The last run is shared with the pairs after if it goes on there.
+  const bool tail_shared =
+      begin + se < n_pairs && (se < count ? skey[se] : st.key_after) == cur;
+  float* dst = out + cur_dst + col0;
+  if (tail_shared || (head && head_shared)) {
+    atomicAdd(dst, acc);
+  } else {
+    *dst = acc;
+  }
+}
+
+template <int JG>
+int launch(const int32_t* sorted_key, const int64_t* perm, const float4* pos,
+           const void* dout, float* out, long long n_pairs, long long n,
+           int n_fetches, unsigned blocks, const Fetches& fetches,
+           cudaStream_t stream) {
+  // The shared memory / L1 split, once: the least shared memory that holds
+  // kBlocksPerSm tiles (with the 1 KB the system reserves a block), in
+  // percent of 228 KB, rounded up by the driver to a split it offers.
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      table_grad_pos_kernel<JG>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>((kBlocksPerSm * (sizeof(Stage<JG>) + 1024) * 100 + 228 * 1024 - 1) /
+                       (228 * 1024)));
+  if (carveout != cudaSuccess) return static_cast<int>(carveout);
+  table_grad_pos_kernel<JG><<<blocks, kThreads, 0, stream>>>(
+      sorted_key, perm, pos, static_cast<const uint2*>(dout), out, n_pairs, n,
+      n_fetches, fetches);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // res: n_fetches * jg resolutions, fetch-major; j_lo, key_k: n_fetches each
-// (host arrays).  Needs 8 * jg * F == 32, jg * F * J * 8 == 128.
+// (host arrays).  `tile` must be the kernel's 512 pairs a block; dout must be
+// 8-byte aligned, and `pos` scratch for n 16-byte records, 16-byte aligned.
+// Needs 8 * jg * F == 32, 8 * J * F == 128 and n_fetches * n < 2^32.
 extern "C" int table_grad_pos_launch(const int32_t* sorted_key,
                                      const int64_t* perm, const float* xs,
                                      const float* ys, const float* zs,
-                                     const void* dout, float* out,
-                                     long long n_pairs, int span, long long n,
+                                     void* pos, const void* dout, float* out,
+                                     long long n_pairs, int tile, long long n,
                                      int n_fetches, int jg, int F, int J,
                                      const float* res, const int* j_lo,
                                      const int* key_k, void* stream) {
   if (n_pairs <= 0) return 0;
-  if (n_fetches <= 0 || n_fetches > kMaxFetches || jg <= 0 || jg > kMaxJg ||
-      8 * jg * F != 32 || 8 * J * F != kRow || n <= 0) {
+  if (tile != kTile || n_fetches <= 0 || n_fetches > kMaxFetches || jg <= 0 ||
+      jg > kMaxJg || jg * F != kCols || 8 * J * F != kRow || n <= 0 ||
+      n_fetches * n >= (1LL << 32) ||
+      reinterpret_cast<uintptr_t>(dout) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(pos) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (n_pairs + kTile - 1) / kTile;
+  const long long pack_blocks = (n + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31) || pack_blocks >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Fetches fetches{};
@@ -182,10 +338,18 @@ extern "C" int table_grad_pos_launch(const int32_t* sorted_key,
     fetches.j_lo[g] = j_lo[g];
     fetches.key_k[g] = key_k[g];
   }
-  const unsigned blocks = sorted_span_blocks(n_pairs, span);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  table_grad_pos_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      sorted_key, perm, xs, ys, zs, static_cast<const __nv_bfloat16*>(dout), out,
-      n_pairs, n, span, n_fetches, jg, F, J, fetches);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto b = static_cast<unsigned>(blocks);
+  auto* p4 = static_cast<float4*>(pos);
+  pack_positions_kernel<<<static_cast<unsigned>(pack_blocks), kThreads, 0, s>>>(xs, ys, zs, p4, n);
+  switch (jg) {
+    case 1:
+      return launch<1>(sorted_key, perm, p4, dout, out, n_pairs, n, n_fetches, b, fetches, s);
+    case 2:
+      return launch<2>(sorted_key, perm, p4, dout, out, n_pairs, n, n_fetches, b, fetches, s);
+    case 4:
+      return launch<4>(sorted_key, perm, p4, dout, out, n_pairs, n, n_fetches, b, fetches, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

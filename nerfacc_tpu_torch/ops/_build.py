@@ -26,11 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerfacc_tpu_torch"
 
 # --fmad=false: no FMA contraction, so a kernel does the same float
 # arithmetic, rounded at the same places, as its plain PyTorch version.
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
 )
+NVCC_FLAGS = COMPILE_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -82,6 +82,20 @@ def build(names: Optional[Iterable[str]] = None) -> None:
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` says of each kernel in ``csrc/<name>.cu`` (registers,
+    shared memory, spills), from a separate compile to a cubin with the
+    library's flags."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = BUILD_DIR / f"{name}.{os.getpid()}.cubin"
+    cmd = [_nvcc(), *COMPILE_FLAGS, "-cubin", "-Xptxas", "-v", "-o", str(cubin), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cubin.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}.cu (nvcc -Xptxas -v exit {proc.returncode}):\n{proc.stdout}")
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -112,8 +112,12 @@ def u10_corner_weights(wq: Tensor) -> Tensor:
 # Launching the sorted-row kernels
 # ---------------------------------------------------------------------------
 
-# Samples per warp: each warp reduces one contiguous span of sorted samples.
+# Samples per warp: each warp of K2, K4 and K5 reduces one contiguous span of
+# sorted samples.
 _SPAN = 128
+# Pairs per block of K6 (``kTile`` in csrc/table_grad_pos.cu, which refuses
+# any other value).
+K6_TILE = 512
 _P = ctypes.c_void_p
 
 
@@ -136,7 +140,7 @@ def _table_grad_lib():
     ))
 
 
-def _launch(lib, fn_name: str, tensors, n_rows: int, *extra) -> Tensor:
+def _launch(lib, fn_name: str, tensors, n_rows: int, *extra, span: int = _SPAN) -> Tensor:
     """Call ``fn_name(*pointers, out, n, span, *extra, stream)`` on a zeroed
     ``(n_rows, 128)`` float32 output; ``tensors[0]`` is the sorted key."""
     device = tensors[0].device
@@ -144,7 +148,7 @@ def _launch(lib, fn_name: str, tensors, n_rows: int, *extra) -> Tensor:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(
-            *[t.data_ptr() for t in tensors], out.data_ptr(), tensors[0].shape[0], _SPAN,
+            *[t.data_ptr() for t in tensors], out.data_ptr(), tensors[0].shape[0], span,
             *extra, stream,
         )
     _build.check(lib, rc, fn_name)
@@ -573,7 +577,7 @@ def table_grad_pos_plain(
 def _table_grad_pos_lib():
     ci, cll = ctypes.c_int, ctypes.c_longlong
     return _lib("table_grad_pos", (
-        ("table_grad_pos_launch", (_P,) * 7 + (cll, ci, cll, ci, ci, ci, ci)
+        ("table_grad_pos_launch", (_P,) * 8 + (cll, ci, cll, ci, ci, ci, ci)
          + (ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ci), ctypes.POINTER(ci), _P)),
     ))
 
@@ -588,10 +592,14 @@ def table_grad_pos(
     (``sorted_key`` int32, ``row * n_fetches + fetch``), the permutation
     that sorted them (``perm`` int64, into the fetch-major pairs), the
     float32 positions ``xs, ys, zs (n,)`` and ``dout (n_fetches * n, jg *
-    F)`` bf16.  One launch covers every fetch; each fetch's 32 active
-    columns are one warp's lanes (``8 * jg * F == 32``).  A CPU tensor takes
-    :func:`table_grad_pos_plain` (with ``consts``); a CUDA tensor launches
-    the kernel or raises."""
+    F)`` bf16.  One launch covers every fetch; a block stages
+    :data:`K6_TILE` pairs' weights and cotangents, and each fetch's 32
+    active columns are one warp's lanes as it walks them
+    (``8 * jg * F == 32``).  The kernel stores, not adds, a run that no
+    other warp holds part of, so no two keys may name the same columns of a
+    row; no two of the encoder's fetches do (each reads its own span's rows
+    or its own window).  A CPU tensor takes :func:`table_grad_pos_plain`
+    (with ``consts``); a CUDA tensor launches the kernel or raises."""
     if dout.device.type == "cpu":
         return table_grad_pos_plain(sorted_key, perm, xs, ys, zs, dout, n_rows, fetches, F, consts)
     name = "table_grad_pos"
@@ -602,16 +610,21 @@ def table_grad_pos(
     _check_sorted(name, sorted_key, perm, n_rows)
     if n_rows * nf >= 1 << 31:
         raise ValueError(f"{name}: row * n_fetches overflows int32")
+    if nf * n >= 1 << 32:
+        raise ValueError(f"{name}: the kernel indexes at most 2^32 (fetch, sample) pairs")
     dev = sorted_key.device
     for what, t in (("xs", xs), ("ys", ys), ("zs", zs)):
         _check_operand(name, what, t, (torch.float32,), (n,), dev)
     _check_operand(name, "dout", dout, (torch.bfloat16,), (nf * n, jg * F), dev)
+    if dout.data_ptr() % 8:
+        raise ValueError(f"{name}: dout must be 8-byte aligned (one 8-byte load a pair)")
     res = (ctypes.c_float * (nf * jg))(*[float(r) for f in fetches for r in f.res])
     j_lo = (ctypes.c_int * nf)(*[f.j_lo for f in fetches])
     key = (ctypes.c_int * nf)(*[f.key for f in fetches])
+    pos = torch.empty((n, 4), dtype=torch.float32, device=dev)  # the kernel packs the positions here
     out = _launch(
-        _table_grad_pos_lib(), "table_grad_pos_launch", (sorted_key, perm, xs, ys, zs, dout), n_rows,
-        n, nf, jg, F, J, res, j_lo, key,
+        _table_grad_pos_lib(), "table_grad_pos_launch", (sorted_key, perm, xs, ys, zs, pos, dout), n_rows,
+        n, nf, jg, F, J, res, j_lo, key, span=K6_TILE,
     )
     table_grad_pos.launches += 1
     return out

@@ -213,33 +213,100 @@ def test_k4_modes_and_k5_match_plain_versions_on_the_card(cuda, n, n_rows):
         assert not got[untouched].any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 5000, 200_000])
-def test_k6_matches_its_plain_version_on_the_card(cuda, n):
+K6_CASES = (
+    "encoder-1", "encoder-5000", "encoder-200000",  # the encoder's own pairs
+    "one-key",      # every pair on one key: one run over many tiles and blocks
+    "tile-runs",    # runs that start and end exactly on the block tiles' edges
+    "warp-runs",    # ... and on the edges of each warp's pairs within a tile
+    "ragged",       # a pair count that is not a multiple of the tile, pile-ups
+    "lattice",      # positions where x * r is an integer (floor on its edge)
+    "empty-fetch",  # the encoder's pairs without those of one fetch
+)
+
+
+def _k6_inputs(case, device):
+    """K6's arguments for one case of the card test, on ``device``: the
+    sorted keys and their permutation into the fetch-major pairs, the
+    positions, bf16 cotangents, the row count and the fetches (a grouped
+    encoder of 2 x 2^12 rows, 8 fetches).  The kernel takes any sorted keys
+    whose fetches keep to their spans and any permutation entries in range,
+    whether or not they agree on the fetch, so the edge cases are built
+    directly."""
     from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.ops.table_grad import K6_TILE
+
+    enc = HashGridEncoderGrouped(log2_hashmap_size=12, device=device)
+    nf, n_rows = len(enc.fetches), enc.table.shape[0]
+    rng = np.random.default_rng(K6_CASES.index(case))
+    kind, _, size = case.partition("-")
+    n = int(size) if kind == "encoder" else {
+        "one": 700, "tile": 8 * K6_TILE // nf, "warp": 8 * K6_TILE // nf, "ragged": 333, "lattice": 4000,
+        "empty": 5000,
+    }[kind]
+    x = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
+    if kind == "lattice":
+        # x = m / r at the fetches' resolutions (x * r within an ulp of m),
+        # and multiples of 1/16 (x * r exactly m at the base resolution 16).
+        res = np.array([r for f in enc.fetches for r in f.res])
+        r = res[rng.integers(0, res.size, (n, 3))]
+        x = (rng.integers(0, r + 1) / r).astype(np.float32)
+        x[::2] = rng.integers(0, 17, (len(x[::2]), 3)) / np.float32(16)
+    pos = torch.from_numpy(x).to(device)
+    xs, ys, zs = (pos[:, i].contiguous() for i in range(3))
+    if kind in ("encoder", "lattice", "empty"):
+        rows = enc.fetch_rows(xs, ys, zs)
+        key = (rows * nf + torch.arange(nf, device=device)[:, None]).reshape(-1).to(torch.int32)
+        sorted_key, perm = torch.sort(key)
+        if kind == "empty":
+            keep = sorted_key % nf != 5
+            sorted_key, perm = sorted_key[keep].contiguous(), perm[keep].contiguous()
+    else:
+        # Fetch g's rows lie in its span, as the encoder's do: no two keys
+        # name the same columns of a row.
+        m, T = nf * n, enc.table_size
+        span = np.array([f.span for f in enc.fetches])
+        if kind == "one":
+            g, r = np.full(m, 3), np.full(m, 1234)
+        elif kind in ("tile", "warp"):
+            run = K6_TILE if kind == "tile" else K6_TILE // 8
+            q = np.arange(m) // run
+            g, r = q % nf, q * 3
+        else:  # ragged: a third of the pairs on three rows, the rest anywhere
+            g = rng.integers(0, nf, m)
+            r = np.concatenate([rng.integers(0, 3, m // 3) * 977, rng.integers(0, T, m - m // 3)])
+        key = (span[g] * T + r) * nf + g
+        sorted_key = torch.from_numpy(np.sort(key).astype(np.int32)).to(device)
+        perm = torch.from_numpy(rng.permutation(m)).to(device)
+    scale = rng.choice([1e-3, 1.0], (nf * n, 1))
+    dout = torch.from_numpy((rng.standard_normal((nf * n, 4)) * scale).astype(np.float32)).to(device)
+    return sorted_key, perm, xs, ys, zs, dout.to(torch.bfloat16), n_rows, enc.fetches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_matches_its_plain_version_on_the_card(cuda, case):
     from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_pos_plain
 
-    enc = HashGridEncoderGrouped(log2_hashmap_size=12, device=cuda)
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy(rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)).to(cuda)
-    xs, ys, zs = (x[:, i].contiguous() for i in range(3))
-    rows = enc.fetch_rows(xs, ys, zs)
-    nf = rows.shape[0]
-    key = (rows * nf + torch.arange(nf, device=cuda)[:, None]).reshape(-1).to(torch.int32)
-    sorted_key, perm = torch.sort(key)
-    dout = torch.from_numpy(rng.standard_normal((nf * n, 4)).astype(np.float32)).to(cuda).to(torch.bfloat16)
-    args = (sorted_key, perm, xs, ys, zs, dout, enc.table.shape[0], enc.fetches, 2)
+    sorted_key, perm, xs, ys, zs, dout, n_rows, fetches = _k6_inputs(case, cuda)
+    args = (sorted_key, perm, xs, ys, zs, dout, n_rows, fetches, 2)
     before = table_grad_pos.launches
     got = table_grad_pos(*args)
     assert table_grad_pos.launches == before + 1
     want = table_grad_pos_plain(*args)
     torch.cuda.synchronize()
     # Equal weights (the same float32 steps, --fmad=false), the same bf16
-    # terms summed in float32 in another order; rows that no fetch names
-    # stay zero.
+    # terms summed in float32 in another order.
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    untouched = torch.bincount(rows.reshape(-1), minlength=enc.table.shape[0]) == 0
-    assert not got[untouched].any()
+    # A (row, fetch) key writes its row's 32 window columns and nothing
+    # else: every other column, and every row no key names, stays zero.
+    nf = len(fetches)
+    keys = torch.unique(sorted_key).long().cpu()
+    j_lo = torch.tensor([f.j_lo for f in fetches])
+    cols = (torch.arange(8)[:, None] * 16 + torch.arange(4)).reshape(-1)
+    named = torch.zeros((n_rows, 128), dtype=torch.bool)
+    named[(keys // nf)[:, None], cols + 2 * j_lo[keys % nf][:, None]] = True
+    got = got.cpu()
+    assert not got[~named].any() and got[named].any()
 
 
 @pytest.mark.cuda
@@ -257,3 +324,7 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     p = torch.zeros(1, device=cuda)
     with pytest.raises(ValueError, match="32 active columns"):
         table_grad_pos(idx, perm, p, p, p, torch.zeros((8, 8), device=cuda, dtype=torch.bfloat16), 1024, enc.fetches, 2)
+    enc = HashGridEncoderGrouped(log2_hashmap_size=9, device=cuda)
+    misaligned = torch.zeros(33, device=cuda, dtype=torch.bfloat16)[1:].view(8, 4)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        table_grad_pos(idx, perm, p, p, p, misaligned, 1024, enc.fetches, 2)

@@ -27,7 +27,9 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_the_jax_package():
     # test_torch_cuda.py runs on the card's machine, which has no JAX.
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "k6_variants.py", REPO / "tests" / "test_torch_cuda.py",
+    ]
     assert len(files) > 10
     bad = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN)
@@ -78,3 +80,16 @@ def test_entry_points_default_to_the_card():
         generate_rays(xs, ys, K, np.eye(4, dtype=np.float32)[:3])
     # The same calls run on the CPU when asked.
     assert OccGridEstimator(roi_aabb=aabb, resolution=8).init("cpu").binaries.device.type == "cpu"
+
+
+def test_k6_variant_substitutions_match_the_kernel_source(monkeypatch):
+    # k6_variants.py changes the kernel by text substitutions: each must
+    # still find its text, or the script times something else.
+    monkeypatch.syspath_prepend(str(REPO))
+    import k6_variants
+
+    src = (PKG / "csrc" / "table_grad_pos.cu").read_text()
+    assert len(k6_variants.VARIANTS) == 5
+    for name, _, subs in k6_variants.VARIANTS:
+        for old, _ in subs:
+            assert old in src, (name, old)
