@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
-   what ``ptxas -v`` says of K6 (registers, shared memory, spills).
+   what ``ptxas -v`` says of K2 and K6 (registers, shared memory, spills).
 2. kernel K1 (occupancy query) against its plain PyTorch version on the
    card, for exact equality, at the render shape and on adversarial points;
    timings with CUDA events.
@@ -25,7 +25,8 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
    K4 (w3 in float32 and bf16, w8 in bf16 and float32) and K5 (bf16) at
    2^21 sample-levels over 4 x 2^15 rows, K6 at 2^19 samples x 8 fetches
    over 2 x 2^16 rows, and K3 (per-cell max) at 2^20 draws; each kernel's
-   share of its bound, the zeroing of the output and the sorts.
+   share of its bound, the zeroing of the output, the sorts and the
+   ``quantize_u10`` of K2's weights (ahead of K2 on the main path).
 6. train: the NGP-occ train step of ``bench.py:59-294`` at its full width
    (16384 rays, 2^19 samples, bf16 compute, the fused encoder L4 x F16),
    3 warm-up steps, 30 timed steps and 8 timed occupancy updates;
@@ -401,10 +402,30 @@ def k6_inputs(u, rng, dev) -> tuple:
     return args, g_key, g_untouched
 
 
+def fused_inputs(u, rng, dev) -> tuple:
+    """The fused encoder's table-gradient inputs at the train shape: the
+    points ``u`` through the bench encoder's rows (4 levels of 2^15 rows; the
+    coarsest, 16^3 cells, is indexed densely, so a quarter of the samples
+    pile onto 4096 rows), sorted with their permutation, the float32
+    fractions, float32 cotangents from ``rng`` and the row count."""
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused
+
+    enc = HashGridEncoderFused(
+        n_levels=4, n_features_per_level=16, log2_hashmap_size=15, device=dev
+    )
+    rows, ws = enc.cell_indices(u)
+    idx = rows.reshape(-1).to(torch.int32)
+    sorted_idx, perm = torch.sort(idx)
+    wx, wy, wz = (w.reshape(-1).contiguous() for w in ws)
+    dout = torch.from_numpy(
+        (rng.standard_normal((idx.numel(), 16)) * 1e-3).astype(np.float32)
+    ).to(dev)
+    return idx, sorted_idx, perm, (wx, wy, wz), dout, enc.table.shape[0]
+
+
 def kernels_vs_plain(dev) -> dict:
     """Phase 5: K2, K4 (its four modes), K5, K6 and K3 against their plain
     versions at the training shapes, and their times."""
-    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused
     from nerfacc_tpu_torch.ops.table_grad import (
         cell_max,
         cell_max_plain,
@@ -423,24 +444,12 @@ def kernels_vs_plain(dev) -> dict:
     )
 
     rng = np.random.default_rng(1)
-    # Sample points around the occupancy shell through the bench encoder's
-    # rows (4 levels of 2^15 rows; the coarsest, 16^3 cells, is indexed
-    # densely, so a quarter of the samples pile onto 4096 rows).
+    # Sample points around the occupancy shell through the bench encoder.
     n = TRAIN_CAPACITY
     u = shell_points(rng, n, dev)
-    enc = HashGridEncoderFused(
-        n_levels=4, n_features_per_level=16, log2_hashmap_size=15, device=dev
-    )
-    rows, (wx, wy, wz) = enc.cell_indices(u)
-    n_rows = enc.table.shape[0]
-    idx = rows.reshape(-1).to(torch.int32)
-    wx, wy, wz = (w.reshape(-1).contiguous() for w in (wx, wy, wz))
+    idx, sorted_idx, perm, (wx, wy, wz), dout, n_rows = fused_inputs(u, rng, dev)
     n_sl = idx.numel()
-    sorted_idx, perm = torch.sort(idx)
     wq = quantize_u10(wx, wy, wz)
-    dout = torch.from_numpy(
-        (rng.standard_normal((n_sl, 16)) * 1e-3).astype(np.float32)
-    ).to(dev)
     bf = torch.bfloat16
     dout_bf = dout.to(bf)
     w3_bf = [w.to(bf) for w in (wx, wy, wz)]
@@ -526,6 +535,8 @@ def kernels_vs_plain(dev) -> dict:
         print(f"torch.zeros of a ({rows}, 128) float32 output (inside each kernel's time): "
               f"{time_ms(lambda: torch.zeros((rows, 128), device=dev)):.4f} ms", flush=True)
     print(f"torch.sort of {n_sl} int32 rows (outside K2, K4, K5): {sort_ms:.4f} ms", flush=True)
+    print(f"quantize_u10 of {n_sl} sample-levels (ahead of K2): "
+          f"{time_ms(lambda: quantize_u10(wx, wy, wz)):.4f} ms", flush=True)
     print(f"torch.sort of {n_pairs} int32 (row, fetch) keys (outside K6): "
           f"{time_ms(lambda: torch.sort(g_key)):.4f} ms", flush=True)
 
@@ -1027,9 +1038,10 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {_build.kernel_names()}", flush=True)
-    for line in _build.ptxas_report("table_grad_pos").splitlines():
-        if any(word in line for word in ("Compiling entry", "Used", "spill")):
-            print(f"K6 ptxas: {line.replace('ptxas info    :', '').strip()}", flush=True)
+    for label, name in (("K2", "table_grad_u10"), ("K6", "table_grad_pos")):
+        for line in _build.ptxas_report(name).splitlines():
+            if any(word in line for word in ("Compiling entry", "Used", "spill")):
+                print(f"{label} ptxas: {line.replace('ptxas info    :', '').strip()}", flush=True)
 
     # ---- 2. K1 against its plain version; 3. serve; 4. crop against CPU ---
     if 2 in run:
@@ -1075,7 +1087,7 @@ def main(argv=None) -> None:
             kernel_row(name, src + file, tg_py + line, launches, kt[key]["err"], kt[key]["ms"],
                        kt[key]["plain_ms"], kt[key]["bytes"], kt[key]["ops"], kt[key].get("library_ms"))
             for name, key, file, line, launches in (
-                ("table_grad_u10", "K2", "table_grad.cu", "749", train_launches["K2"]),
+                ("table_grad_u10", "K2", "table_grad_u10.cu", "749", train_launches["K2"]),
                 ("table_grad_w3", "K4-w3", "table_grad.cu", "572", route_launches["float32"]),
                 ("table_grad_w3_bf16", "K4-w3-bf16", "table_grad.cu", "572", route_launches["w3 bf16"]),
                 ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),

@@ -1,13 +1,13 @@
-// The warp-span skeleton of the port's table-gradient kernels: K2 and K4
-// (csrc/table_grad.cu), K5 (csrc/table_grad_sorted.cu) and K6
-// (csrc/table_grad_pos.cu).
+// The warp-span skeleton of two of the port's table-gradient kernels: K4
+// (csrc/table_grad.cu) and K5 (csrc/table_grad_sorted.cu).  K2 and K6 have
+// tile kernels of their own (csrc/table_grad_u10.cu, csrc/table_grad_pos.cu).
 //
-// Samples arrive sorted by an int32 key that names their output row (for K6
-// the row and the fetch).  Each warp reduces one contiguous span of `span`
-// sorted samples: its lanes load 32 samples at a time, then the warp walks
-// them in order, broadcasting each by shuffle.  A run of equal keys is summed
-// in registers and written once; only a run that goes on into the previous
-// or the next span is added with atomics.  The output must start zeroed.
+// Samples arrive sorted by an int32 key that names their output row.  Each
+// warp reduces one contiguous span of `span` sorted samples: its lanes load
+// 32 samples at a time, then the warp walks them in order, broadcasting each
+// by shuffle.  A run of equal keys is summed in registers and written once;
+// only a run that goes on into the previous or the next span is added with
+// atomics.  The output must start zeroed.
 //
 // An Op supplies the per-sample work:
 //   Op::Sample         what a lane loads for one sample, with shfl(j);

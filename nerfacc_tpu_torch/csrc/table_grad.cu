@@ -1,37 +1,35 @@
-// Table gradient of the fused hash encoder: per-row sums of rank-1 cotangents.
+// Table gradient of the fused hash encoder from w3 or w8 factors: kernel K4.
 //
-// Replaces the TPU kernels nerfacc_tpu/ops/table_grad.py:
-//   table_grad_factors_sorted_u10 (kernel body _factor_kernel_u10)  -> K2,
+// Replaces the TPU kernel nerfacc_tpu/ops/table_grad.py:
 //   table_grad_factors_sorted (_factor_kernel), wpack "w3" and "w8"  -> K4.
+// (K2, the u10 mode of the same sum, has its own tile kernel in
+// csrc/table_grad_u10.cu.)
 // For each sample i with table row r_i, corner weights w_c(i) and output
 // cotangent dout_i (16 features), it adds w_c(i) * dout_i[f] into
 // out[r_i, c * 16 + f] for the 8 corners c = 4 dx + 2 dy + dz.  The weights
-// arrive in one of three forms:
-//   u10: three fractions as 10-bit fixed point in one int32, dequantised as
-//     q * (1/1023), their complements as fma(-q, 1/1023, 1) (XLA contracts
-//     the Pallas kernel's 1 - q * (1/1023) into one rounding);
+// arrive in one of two forms:
 //   w3: the three fractions (wx, wy, wz), in bf16 or float32;
 //   w8: the eight corner weights, in bf16 or float32.
-// From u10 and w3 the corner weight is the float32 product (wx' * wy') * wz'.
-// In bf16 (u10 always; w3 and w8 with bf16 inputs) each corner weight is
-// rounded to bf16 and each product w_c * dout_f is rounded to bf16 before it
-// is added in float32 -- the steps of the Pallas kernel, term for term.  In
-// float32 the products and sums are float32.  The plain PyTorch versions
-// (nerfacc_tpu_torch/ops/table_grad.py: table_grad_u10_plain,
+// From w3 the corner weight is the float32 product (wx' * wy') * wz'.  With
+// bf16 inputs each corner weight is rounded to bf16 and each product
+// w_c * dout_f is rounded to bf16 before it is added in float32 -- the steps
+// of the Pallas kernel, term for term.  In float32 the products and sums are
+// float32.  The plain PyTorch versions (nerfacc_tpu_torch/ops/table_grad.py:
 // table_grad_w3_plain, table_grad_w8_plain) do the same arithmetic; only the
 // order of the float32 sums differs.  Built with --fmad=false.
 //
 // What bounds it: device memory.  At the training shape (2,097,152
-// sample-levels, 131,072 rows), K2 reads 40 B per sample (row, weights, 32 B
-// of bf16 cotangent) and writes a 64 MiB table: 151 MB, 0.045 ms at
-// 3.35 TB/s; the arithmetic (8 x 16 multiply-adds a sample) is far below the
-// card's rate.  The TPU kernel built one-hot matrices for the MXU; here the
-// samples come sorted by row (torch.sort, outside the kernel) and each warp
-// reduces one contiguous span of them (csrc/sorted_rows.cuh): lane l holds
-// columns 4l .. 4l + 3, that is corner l / 4 and features 4 (l % 4) .. + 3.
-// Adding every term with an unsorted atomicAdd would serialise on the
-// densely indexed coarse level (4096 rows receive a quarter of all samples).
-// One launch covers all levels: row ids are unique across them.
+// sample-levels, 131,072 rows), w3 in bf16 reads 42 B per sample (row,
+// weights, 32 B of bf16 cotangent) and writes a 64 MiB table: 155 MB,
+// 0.046 ms at 3.35 TB/s; the arithmetic (8 x 16 multiply-adds a sample) is
+// far below the card's rate.  The TPU kernel built one-hot matrices for the
+// MXU; here the samples come sorted by row (torch.sort, outside the kernel)
+// and each warp reduces one contiguous span of them (csrc/sorted_rows.cuh):
+// lane l holds columns 4l .. 4l + 3, that is corner l / 4 and features
+// 4 (l % 4) .. + 3.  Adding every term with an unsorted atomicAdd would
+// serialise on the densely indexed coarse level (4096 rows receive a quarter
+// of all samples).  One launch covers all levels: row ids are unique across
+// them.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -44,20 +42,18 @@ namespace {
 constexpr int kF = 16;     // features per corner
 constexpr int kRow = 128;  // 8 corners x 16 features
 
-enum class Weights { kU10, kW3, kW8 };
+enum class Weights { kW3, kW8 };
 
-// T is the type of dout and of the w3/w8 weights (u10: bf16); the terms are
-// rounded to bf16 when T is bf16.
+// T is the type of dout and of the weights; the terms are rounded to bf16
+// when T is bf16.
 template <Weights kW, typename T>
 struct FactorOp {
   struct Sample {
     int64_t p = 0;  // the sample's index in the unsorted inputs
-    int q = 0;      // u10 weights
     float x = 0.f, y = 0.f, z = 0.f;  // w3 weights
     __device__ Sample shfl(int j) const {
       Sample s;
       s.p = shfl64(p, j);
-      if constexpr (kW == Weights::kU10) s.q = __shfl_sync(kAllLanes, q, j);
       if constexpr (kW == Weights::kW3) {
         s.x = __shfl_sync(kAllLanes, x, j);
         s.y = __shfl_sync(kAllLanes, y, j);
@@ -68,14 +64,12 @@ struct FactorOp {
   };
 
   const int64_t* perm;
-  const int32_t* wq;
   const T* wx;
   const T* wy;
   const T* wz;
   const T* w8;
   const T* dout;
   float* out;
-  float inv1023;
   int lane, c;
   bool hx, hy, hz;
   float acc[4];
@@ -83,7 +77,6 @@ struct FactorOp {
   __device__ Sample load(int64_t i) const {
     Sample s;
     s.p = __ldg(perm + i);
-    if constexpr (kW == Weights::kU10) s.q = __ldg(wq + s.p);
     if constexpr (kW == Weights::kW3) {
       s.x = to_float(__ldg(wx + s.p));
       s.y = to_float(__ldg(wy + s.p));
@@ -94,14 +87,7 @@ struct FactorOp {
 
   __device__ void add(const Sample& s, int) {
     float w;
-    if constexpr (kW == Weights::kU10) {
-      const float qx = static_cast<float>((s.q >> 20) & 1023);
-      const float qy = static_cast<float>((s.q >> 10) & 1023);
-      const float qz = static_cast<float>(s.q & 1023);
-      w = (hx ? qx * inv1023 : __fmaf_rn(-qx, inv1023, 1.f)) *
-          (hy ? qy * inv1023 : __fmaf_rn(-qy, inv1023, 1.f));
-      w = w * (hz ? qz * inv1023 : __fmaf_rn(-qz, inv1023, 1.f));
-    } else if constexpr (kW == Weights::kW3) {
+    if constexpr (kW == Weights::kW3) {
       w = (hx ? s.x : 1.f - s.x) * (hy ? s.y : 1.f - s.y);
       w = w * (hz ? s.z : 1.f - s.z);
     } else {
@@ -128,21 +114,18 @@ template <Weights kW, typename T>
 __global__ void __launch_bounds__(256)
     table_grad_kernel(const int32_t* __restrict__ sorted_idx,
                       const int64_t* __restrict__ perm,
-                      const int32_t* __restrict__ wq, const T* __restrict__ wx,
-                      const T* __restrict__ wy, const T* __restrict__ wz,
+                      const T* __restrict__ wx, const T* __restrict__ wy,
+                      const T* __restrict__ wz,
                       const T* __restrict__ w8, const T* __restrict__ dout,
-                      float* __restrict__ out, int64_t n, int span,
-                      float inv1023) {
+                      float* __restrict__ out, int64_t n, int span) {
   FactorOp<kW, T> op;
   op.perm = perm;
-  op.wq = wq;
   op.wx = wx;
   op.wy = wy;
   op.wz = wz;
   op.w8 = w8;
   op.dout = dout;
   op.out = out;
-  op.inv1023 = inv1023;
   op.lane = threadIdx.x & 31;
   op.c = op.lane >> 2;
   op.hx = (op.c >> 2) & 1;
@@ -154,30 +137,20 @@ __global__ void __launch_bounds__(256)
 }
 
 template <Weights kW, typename T>
-int launch(const int32_t* sorted_idx, const int64_t* perm, const int32_t* wq,
-           const void* wx, const void* wy, const void* wz, const void* w8,
-           const void* dout, float* out, long long n, int span, float inv1023,
-           void* stream) {
+int launch(const int32_t* sorted_idx, const int64_t* perm, const void* wx,
+           const void* wy, const void* wz, const void* w8, const void* dout,
+           float* out, long long n, int span, void* stream) {
   if (n <= 0) return 0;
   const unsigned blocks = sorted_span_blocks(n, span);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   table_grad_kernel<kW, T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      sorted_idx, perm, wq, static_cast<const T*>(wx), static_cast<const T*>(wy),
+      sorted_idx, perm, static_cast<const T*>(wx), static_cast<const T*>(wy),
       static_cast<const T*>(wz), static_cast<const T*>(w8),
-      static_cast<const T*>(dout), out, n, span, inv1023);
+      static_cast<const T*>(dout), out, n, span);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
-
-extern "C" int table_grad_u10_launch(const int32_t* sorted_idx,
-                                     const int64_t* perm, const int32_t* wq,
-                                     const void* dout, float* out, long long n,
-                                     int span, float inv1023, void* stream) {
-  return launch<Weights::kU10, __nv_bfloat16>(
-      sorted_idx, perm, wq, nullptr, nullptr, nullptr, nullptr, dout, out, n,
-      span, inv1023, stream);
-}
 
 // bf16 != 0: wx, wy, wz and dout are bf16; else float32.
 extern "C" int table_grad_w3_launch(const int32_t* sorted_idx,
@@ -186,12 +159,12 @@ extern "C" int table_grad_w3_launch(const int32_t* sorted_idx,
                                     const void* dout, float* out, long long n,
                                     int span, int bf16, void* stream) {
   if (bf16) {
-    return launch<Weights::kW3, __nv_bfloat16>(sorted_idx, perm, nullptr, wx, wy,
-                                               wz, nullptr, dout, out, n, span,
-                                               0.f, stream);
+    return launch<Weights::kW3, __nv_bfloat16>(sorted_idx, perm, wx, wy, wz,
+                                               nullptr, dout, out, n, span,
+                                               stream);
   }
-  return launch<Weights::kW3, float>(sorted_idx, perm, nullptr, wx, wy, wz,
-                                     nullptr, dout, out, n, span, 0.f, stream);
+  return launch<Weights::kW3, float>(sorted_idx, perm, wx, wy, wz, nullptr,
+                                     dout, out, n, span, stream);
 }
 
 // bf16 != 0: w8 (N, 8) and dout are bf16; else float32.
@@ -201,10 +174,9 @@ extern "C" int table_grad_w8_launch(const int32_t* sorted_idx,
                                     int span, int bf16, void* stream) {
   if (bf16) {
     return launch<Weights::kW8, __nv_bfloat16>(sorted_idx, perm, nullptr,
-                                               nullptr, nullptr, nullptr, w8,
-                                               dout, out, n, span, 0.f, stream);
+                                               nullptr, nullptr, w8, dout, out,
+                                               n, span, stream);
   }
   return launch<Weights::kW8, float>(sorted_idx, perm, nullptr, nullptr,
-                                     nullptr, nullptr, w8, dout, out, n, span,
-                                     0.f, stream);
+                                     nullptr, w8, dout, out, n, span, stream);
 }

@@ -23,9 +23,10 @@
 // (torch.sort, outside the kernel), with the permutation that sorted the
 // fetch-major pairs.  One call covers every fetch: a pre-pass that packs the
 // positions, then the tile kernel.  A fetch has 8 * jg * F == 32 active
-// columns, jg * F = 4 a corner.  No two keys may name the same columns of a
-// row, and the encoder's fetches never do: a run is stored, not added, where
-// no other warp holds part of it.
+// columns, jg * F = 4 a corner.  A run is stored, not added, where no other
+// warp holds part of it, so no two keys may name the same columns of a row:
+// the wrapper refuses fetches that share a span and a window (j_lo), which
+// the plain version would sum.  The encoder's fetches never do.
 //
 // What bounds it: device memory.  At the grouped training shape (2^19
 // samples x 8 fetches = 2^22 pairs over 131,072 rows, jg = 2, F = 2, bf16)

@@ -38,11 +38,11 @@ Port of ``nerfacc_tpu/ops/table_grad.py``:
 - K3, :func:`cell_max` (replaces ``cell_max_sorted``): the exact
   ``full(-1).at[ids].max(vals)`` for non-negative ``vals``.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/table_grad.cu``, ``csrc/table_grad_sorted.cu``,
-``csrc/table_grad_pos.cu``, ``csrc/cell_max.cu``) or raises; on a CPU tensor
-it runs the plain PyTorch version beside it, which does the kernel's
-arithmetic term for term.
+On a CUDA tensor each wrapper launches its hand-written kernel (K2
+``csrc/table_grad_u10.cu``, K4 ``csrc/table_grad.cu``, K5
+``csrc/table_grad_sorted.cu``, K6 ``csrc/table_grad_pos.cu``, K3
+``csrc/cell_max.cu``) or raises; on a CPU tensor it runs the plain PyTorch
+version beside it, which does the kernel's arithmetic term for term.
 """
 
 from __future__ import annotations
@@ -112,11 +112,13 @@ def u10_corner_weights(wq: Tensor) -> Tensor:
 # Launching the sorted-row kernels
 # ---------------------------------------------------------------------------
 
-# Samples per warp: each warp of K2, K4 and K5 reduces one contiguous span of
+# Samples per warp: each warp of K4 and K5 reduces one contiguous span of
 # sorted samples.
 _SPAN = 128
-# Pairs per block of K6 (``kTile`` in csrc/table_grad_pos.cu, which refuses
-# any other value).
+# Samples per block of K2 (``kTile`` in csrc/table_grad_u10.cu) and pairs per
+# block of K6 (``kTile`` in csrc/table_grad_pos.cu); each kernel refuses any
+# other value.
+K2_TILE = 256
 K6_TILE = 512
 _P = ctypes.c_void_p
 
@@ -131,10 +133,15 @@ def _lib(name: str, signatures: Tuple[Tuple[str, tuple], ...]):
     return lib
 
 
+def _table_grad_u10_lib():
+    return _lib("table_grad_u10", (
+        ("table_grad_u10_launch", (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _P)),
+    ))
+
+
 def _table_grad_lib():
     tail = (ctypes.c_longlong, ctypes.c_int)
     return _lib("table_grad", (
-        ("table_grad_u10_launch", (_P,) * 5 + tail + (ctypes.c_float, _P)),
         ("table_grad_w3_launch", (_P,) * 7 + tail + (ctypes.c_int, _P)),
         ("table_grad_w8_launch", (_P,) * 5 + tail + (ctypes.c_int, _P)),
     ))
@@ -231,9 +238,11 @@ def table_grad_u10(
     """Kernel K2: the ``(n_rows, 128)`` float32 table gradient from rows
     sorted ascending (``sorted_idx`` int32, in ``[0, n_rows)``), the
     permutation that sorted them (``perm`` int64), u10 weights ``wq`` int32
-    and ``dout (N, 16)`` bf16, both in unsorted sample order.  A CPU tensor
-    takes :func:`table_grad_u10_plain`; a CUDA tensor launches the kernel
-    (one launch for all levels) or raises."""
+    and ``dout (N, 16)`` bf16, both in unsorted sample order.  A block
+    stages :data:`K2_TILE` sorted samples' corner weights and cotangents,
+    and each warp walks its share of them.  A CPU tensor takes
+    :func:`table_grad_u10_plain`; a CUDA tensor launches the kernel (one
+    launch for all levels) or raises."""
     if dout.device.type == "cpu":
         return table_grad_u10_plain(sorted_idx, perm, wq, dout, n_rows)
     name = "table_grad_u10"
@@ -241,7 +250,13 @@ def table_grad_u10(
     n, dev = perm.shape[0], sorted_idx.device
     _check_operand(name, "dout", dout, (torch.bfloat16,), (n, F_PER_ROW), dev)
     _check_operand(name, "wq", wq, (torch.int32,), (n,), dev)
-    out = _launch(_table_grad_lib(), "table_grad_u10_launch", (sorted_idx, perm, wq, dout), n_rows, _INV_1023)
+    for what, t in (("sorted_idx", sorted_idx), ("perm", perm), ("dout", dout)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned (the kernel reads it 16 bytes at a time)")
+    out = _launch(
+        _table_grad_u10_lib(), "table_grad_u10_launch", (sorted_idx, perm, wq, dout), n_rows, _INV_1023,
+        span=K2_TILE,
+    )
     table_grad_u10.launches += 1
     return out
 
@@ -542,6 +557,15 @@ def _check_fetches(fetches: Sequence[Fetch], F: int) -> Tuple[int, int]:
     return J, jg
 
 
+def shared_windows(fetches: Sequence[Fetch]) -> list:
+    """The ``(span, j_lo)`` windows that more than one of ``fetches``
+    reads, sorted.  Such fetches name the same columns of the same rows:
+    :func:`table_grad_pos_plain` sums their terms, while K6 stores each run
+    that no other warp holds part of, so one would overwrite the other."""
+    seen = [(f.span, f.j_lo) for f in fetches]
+    return sorted({w for w in seen if seen.count(w) > 1})
+
+
 def table_grad_pos_plain(
     sorted_key: Tensor, perm: Tensor, xs: Tensor, ys: Tensor, zs: Tensor,
     dout: Tensor, n_rows: int, fetches: Sequence[Fetch], F: int,
@@ -596,10 +620,11 @@ def table_grad_pos(
     :data:`K6_TILE` pairs' weights and cotangents, and each fetch's 32
     active columns are one warp's lanes as it walks them
     (``8 * jg * F == 32``).  The kernel stores, not adds, a run that no
-    other warp holds part of, so no two keys may name the same columns of a
-    row; no two of the encoder's fetches do (each reads its own span's rows
-    or its own window).  A CPU tensor takes :func:`table_grad_pos_plain`
-    (with ``consts``); a CUDA tensor launches the kernel or raises."""
+    other warp holds part of, so it refuses fetches that share a span and a
+    window (:func:`shared_windows`), whose terms the plain version would
+    sum; the encoder's fetches never do (each reads its own span's rows or
+    its own window).  A CPU tensor takes :func:`table_grad_pos_plain` (with
+    ``consts``); a CUDA tensor launches the kernel or raises."""
     if dout.device.type == "cpu":
         return table_grad_pos_plain(sorted_key, perm, xs, ys, zs, dout, n_rows, fetches, F, consts)
     name = "table_grad_pos"
@@ -607,6 +632,9 @@ def table_grad_pos(
     nf, n = len(fetches), xs.shape[0]
     if 8 * jg * F != 32 or nf > 32:
         raise ValueError(f"{name}: the kernel takes 32 active columns a fetch and at most 32 fetches")
+    shared = shared_windows(fetches)
+    if shared:
+        raise ValueError(f"{name}: fetches share the (span, j_lo) windows {shared}; the kernel cannot sum them")
     _check_sorted(name, sorted_key, perm, n_rows)
     if n_rows * nf >= 1 << 31:
         raise ValueError(f"{name}: row * n_fetches overflows int32")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6.  Needs an NVIDIA
+K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6, and the wrappers'
+refusals.  Needs an NVIDIA
 GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
 imports JAX, hence ``--noconftest``)::
 
@@ -126,9 +127,71 @@ def _sorted_factors(rng, n, n_rows, device):
     return sorted_idx, perm, w, dout
 
 
+K2_CASES = (
+    "pileup-1", "pileup-1000", "pileup-300000",  # a quarter of the samples on 64 rows
+    "encoder-1", "encoder-5000", "encoder-200000",  # the fused encoder's own rows
+    "one-row",    # every sample on one row: one run over many tiles and blocks
+    "tile-runs",  # runs that start and end exactly on the block tiles' edges
+    "warp-runs",  # ... and on the edges of each warp's samples within a tile
+    "ragged",     # a sample count that is not a multiple of the tile, pile-ups
+    "u10-ends",   # weights of exactly 0 and 1 on each axis: q in {0, 1023}
+)
+
+
+def _k2_inputs(case, device):
+    """K2's (and K4-w3's) arguments for one case of the card test: rows
+    sorted ascending with their permutation, the float32 fractions ``(3,
+    n)``, float32 cotangents ``(n, 16)`` of mixed scale and the row count."""
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused
+    from nerfacc_tpu_torch.ops.table_grad import K2_TILE
+
+    rng = np.random.default_rng(K2_CASES.index(case))
+    kind, _, size = case.partition("-")
+    if kind == "pileup":
+        n = int(size)
+        n_rows = {1: 64, 1000: 4096}.get(n, 16384)
+        return (*_sorted_factors(rng, n, n_rows, device), n_rows)
+    if kind == "encoder":
+        # Points around a shell through 4 levels of 2^12 rows; the coarsest
+        # level (16^3 cells) is indexed densely.
+        n = int(size)
+        enc = HashGridEncoderFused(n_levels=4, n_features_per_level=16, log2_hashmap_size=12, device=device)
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        u = (0.5 + 0.225 * (1.0 + rng.uniform(-0.18, 0.18, (n, 1))) * d).astype(np.float32)
+        rows, ws = enc.cell_indices(torch.from_numpy(u).to(device))
+        idx, n_rows = rows.reshape(-1).to(torch.int32), enc.table.shape[0]
+        w = torch.stack([c.reshape(-1) for c in ws])
+        n = idx.numel()
+    else:
+        n = {"one": 5000, "tile": 8 * K2_TILE, "warp": 8 * K2_TILE, "ragged": 333, "u10": 3000}[kind]
+        n_rows = 4096
+        if kind == "one":
+            idx = np.full(n, 1234)
+        elif kind in ("tile", "warp"):  # a warp walks half a tile
+            idx = np.arange(n) // (K2_TILE if kind == "tile" else K2_TILE // 2) * 3
+        elif kind == "ragged":  # a third of the samples on three rows
+            idx = np.concatenate([rng.integers(0, 3, n // 3) * 977, rng.integers(0, n_rows, n - n // 3)])
+        else:
+            idx = rng.integers(0, 64, n)
+        idx = torch.from_numpy(idx.astype(np.int32)).to(device)
+        w = rng.random((3, n), dtype=np.float32)
+        if kind == "u10":
+            # Every sample has one axis at 0 or 1, every other sample all three.
+            at_end = np.zeros((3, n), bool)
+            at_end[rng.integers(0, 3, n), np.arange(n)] = True
+            at_end[:, ::2] = True
+            w = np.where(at_end, rng.integers(0, 2, (3, n)), w).astype(np.float32)
+        w = torch.from_numpy(w).to(device)
+    sorted_idx, perm = torch.sort(idx)
+    scale = rng.choice([1e-3, 1.0], (n, 1))
+    dout = torch.from_numpy((rng.standard_normal((n, 16)) * scale).astype(np.float32)).to(device)
+    return sorted_idx, perm, w, dout, n_rows
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,n_rows", [(1, 64), (1000, 4096), (300_000, 16384)])
-def test_table_grad_kernels_match_plain_versions_on_the_card(cuda, n, n_rows):
+@pytest.mark.parametrize("case", K2_CASES)
+def test_table_grad_kernels_match_plain_versions_on_the_card(cuda, case):
     from nerfacc_tpu_torch.ops.table_grad import (
         quantize_u10,
         table_grad_u10,
@@ -137,9 +200,11 @@ def test_table_grad_kernels_match_plain_versions_on_the_card(cuda, n, n_rows):
         table_grad_w3_plain,
     )
 
-    rng = np.random.default_rng(n)
-    sorted_idx, perm, w, dout = _sorted_factors(rng, n, n_rows, cuda)
+    sorted_idx, perm, w, dout, n_rows = _k2_inputs(case, cuda)
     wq = quantize_u10(*w)
+    if case == "u10-ends":
+        q = torch.stack([(wq >> b) & 1023 for b in (20, 10, 0)])
+        assert bool((q == 0).any(dim=1).all()) and bool((q == 1023).any(dim=1).all())
     dout_bf = dout.to(torch.bfloat16)
     before = table_grad_u10.launches, table_grad_w3.launches
     k2 = table_grad_u10(sorted_idx, perm, wq, dout_bf, n_rows)
@@ -155,6 +220,7 @@ def test_table_grad_kernels_match_plain_versions_on_the_card(cuda, n, n_rows):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
         assert not got[untouched].any()
+    assert bool(k2[~untouched].any(dim=1).all())  # every named row received its terms
 
 
 @pytest.mark.cuda
@@ -312,7 +378,7 @@ def test_k6_matches_its_plain_version_on_the_card(cuda, case):
 @pytest.mark.cuda
 def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
-    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_sorted, table_grad_w8
+    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_sorted, table_grad_u10, table_grad_w8
 
     idx = torch.zeros(8, dtype=torch.int32, device=cuda)
     perm = torch.arange(8, device=cuda)
@@ -328,3 +394,12 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     misaligned = torch.zeros(33, device=cuda, dtype=torch.bfloat16)[1:].view(8, 4)
     with pytest.raises(ValueError, match="8-byte aligned"):
         table_grad_pos(idx, perm, p, p, p, misaligned, 1024, enc.fetches, 2)
+    # Two fetches on one span and window: the plain version sums them, the
+    # kernel would store one over the other.
+    dout = torch.zeros((9, 4), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"share the \(span, j_lo\) windows \[\(0, 2\)\]"):
+        table_grad_pos(idx, perm, p, p, p, dout, 1024, enc.fetches + (enc.fetches[1],), 2)
+    wq = torch.zeros(8, dtype=torch.int32, device=cuda)
+    dout = torch.zeros(8 * 16 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 16)
+    with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
+        table_grad_u10(idx, perm, wq, dout, 16)

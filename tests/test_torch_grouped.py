@@ -17,7 +17,13 @@ from nerfacc_tpu_torch.convert import field_from_jax
 from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped as TEncoder
 from nerfacc_tpu_torch.models.hash_soa import _hash_rows, grid_resolutions
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField as TField
-from nerfacc_tpu_torch.ops.table_grad import Fetch, _grouped_corner_weights, fetch_consts, table_grad_pos
+from nerfacc_tpu_torch.ops.table_grad import (
+    Fetch,
+    _grouped_corner_weights,
+    fetch_consts,
+    shared_windows,
+    table_grad_pos,
+)
 
 L, F = 16, 2
 # tests/test_models.py:816-851's settings: T = 2^9, resolutions to 256.
@@ -181,6 +187,34 @@ def test_k6_plain_matches_jax_pos_kernel_for_every_fetch():
         cols = [c * 16 + (fe.j_lo + k) * F + f for c in range(8) for k in range(2) for f in range(F)]
         owned[np.ix_(np.unique(rows[g].numpy()), cols)] = True
     assert (~owned).sum() > 1000 and not got[~owned].any() and got[owned].any()
+
+
+@pytest.mark.parametrize("keys_per_row", [4, 2])
+def test_k6_refuses_only_fetches_that_share_a_window(keys_per_row):
+    """K6 stores each run that no other warp holds part of, so on the card it
+    refuses fetches that name the same columns of a row (a repeated span and
+    window); the encoder never makes them, and the CPU path sums them."""
+    tenc = TEncoder(**SMALL, keys_per_row=keys_per_row, device="cpu")
+    assert len(tenc.fetches) == 2 * keys_per_row
+    assert shared_windows(tenc.fetches) == []
+    fe = tenc.fetches[-1]
+    assert shared_windows(tenc.fetches + (fe,)) == [(fe.span, fe.j_lo)]
+    assert shared_windows((fe, tenc.fetches[0], fe, tenc.fetches[0])) == sorted(
+        {(fe.span, fe.j_lo), (tenc.fetches[0].span, tenc.fetches[0].j_lo)})
+    # The plain version sums a repeated fetch: twice the terms of one.
+    rng = np.random.default_rng(7)
+    n, T = 300, tenc.table_size
+    x = _points(rng, n)
+    pos = [torch.from_numpy(x[:, i].copy()) for i in range(3)]
+    rows = rng.integers(0, 50, n) + fe.span * T
+    dout = torch.from_numpy(rng.standard_normal((n, len(fe.res) * F)).astype(np.float32)).to(torch.bfloat16)
+    one_key, one_perm = torch.sort(torch.from_numpy(rows.astype(np.int32)))
+    once = table_grad_pos(one_key, one_perm, *pos, dout, 2 * T, (fe,), F)
+    key = torch.from_numpy((np.concatenate([rows, rows]) * 2 + np.repeat([0, 1], n)).astype(np.int32))
+    two_key, two_perm = torch.sort(key)
+    twice = table_grad_pos(two_key, two_perm, *pos, torch.cat([dout, dout]), 2 * T, (fe, fe), F)
+    assert once.abs().max() > 0
+    torch.testing.assert_close(twice, 2 * once, rtol=0, atol=1e-6 * float(once.abs().max()))
 
 
 def test_grouped_bf16_table_gradient_matches_jax_grad_and_positions_get_none():

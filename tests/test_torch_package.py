@@ -28,7 +28,7 @@ def _imported_roots(path: Path):
 def test_no_file_imports_jax_or_the_jax_package():
     # test_torch_cuda.py runs on the card's machine, which has no JAX.
     files = sorted(PKG.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "k6_variants.py", REPO / "tests" / "test_torch_cuda.py",
+        REPO / "chip_smoke.py", REPO / "kernel_variants.py", REPO / "tests" / "test_torch_cuda.py",
     ]
     assert len(files) > 10
     bad = {
@@ -82,14 +82,23 @@ def test_entry_points_default_to_the_card():
     assert OccGridEstimator(roi_aabb=aabb, resolution=8).init("cpu").binaries.device.type == "cpu"
 
 
-def test_k6_variant_substitutions_match_the_kernel_source(monkeypatch):
-    # k6_variants.py changes the kernel by text substitutions: each must
+def _variants_match_their_source(monkeypatch, kernel, n_variants):
+    # kernel_variants.py changes a kernel by text substitutions: each must
     # still find its text, or the script times something else.
     monkeypatch.syspath_prepend(str(REPO))
-    import k6_variants
+    import kernel_variants
 
-    src = (PKG / "csrc" / "table_grad_pos.cu").read_text()
-    assert len(k6_variants.VARIANTS) == 5
-    for name, _, subs in k6_variants.VARIANTS:
+    source, variants = kernel_variants.VARIANTS[kernel]
+    src = (PKG / "csrc" / f"{source}.cu").read_text()
+    assert len(variants) == n_variants
+    for name, _, subs in variants:
         for old, _ in subs:
             assert old in src, (name, old)
+
+
+def test_k6_variant_substitutions_match_the_kernel_source(monkeypatch):
+    _variants_match_their_source(monkeypatch, "k6", 5)
+
+
+def test_k2_variant_substitutions_match_the_kernel_source(monkeypatch):
+    _variants_match_their_source(monkeypatch, "k2", 8)
