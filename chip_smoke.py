@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
-   what ``ptxas -v`` says of K2 and K6 (registers, shared memory, spills).
+   what ``ptxas -v`` says of K1, K2, K3 and K6 (registers, shared memory,
+   spills).
 2. kernel K1 (occupancy query) against its plain PyTorch version on the
    card, for exact equality, at the render shape and on adversarial points;
    timings with CUDA events.
@@ -32,7 +33,8 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
    3 warm-up steps, 30 timed steps and 8 timed occupancy updates;
    samples/s, step and update ms, the launches of K1, K2 and K3 on that
    path, peak memory, first and last loss; K1 against its plain version on
-   one step's skip probes and lattice queries; then a few steps under
+   one step's skip probes and lattice queries, and K3 on one update's
+   draws, each timed beside its bound; then a few steps under
    torch.profiler.
 7. train, tcnn shape: the same step with ``BENCH_ENCODER=grouped
    BENCH_LEVELS=16 BENCH_FEATS=2 BENCH_LOG2T=19`` (the grouped encoder, a
@@ -140,19 +142,22 @@ def shell_binaries(res: int) -> np.ndarray:
 
 def adversarial_points(aabb: np.ndarray, levels: int, res: int, rng) -> np.ndarray:
     """Points on cell faces of every level, at +-0.5 of the normalised box,
-    outside it, in z cells that are the last bit of a word, and at random."""
+    outside it, in z cells that are the last bit of a word, with +-inf and
+    NaN coordinates (every point of ``{0, 0.3, -0.2, 1.2, +inf, -inf,
+    NaN}^3`` too), and at random."""
     lo, ext = aabb[:3], aabb[3:] - aabb[:3]
     faces = []
     for lvl in range(levels):
         k = np.arange(res + 1, dtype=np.float32) / res - 0.5  # level-0 faces
         faces.append(k * 2.0**lvl)
     faces = np.concatenate(faces)
-    special = np.array([-0.5, 0.5, -0.5000001, 0.4999999, 0.0], np.float32)
+    special = np.array([-0.5, 0.5, -0.5000001, 0.4999999, 0.0, np.inf, -np.inf, np.nan], np.float32)
     z31 = ((np.arange(31, res, 32) + 0.5) / res - 0.5).astype(np.float32)
     coords = np.concatenate([faces, special, z31])
     n_side = coords.shape[0]
     grid = np.stack(np.meshgrid(coords[: min(n_side, 96)], coords, z31, indexing="ij"), -1)
-    pts = [grid.reshape(-1, 3)]
+    v = np.array([0.0, 0.3, -0.2, 1.2, np.inf, -np.inf, np.nan], np.float32)
+    pts = [grid.reshape(-1, 3), np.stack(np.meshgrid(v, v, v, indexing="ij"), -1).reshape(-1, 3)]
     pick = rng.integers(0, n_side, size=(200_000, 3))
     pts.append(coords[pick])
     scale = 2.0 ** (levels + 1)
@@ -295,7 +300,8 @@ def k1_on_train_inputs(step, state) -> float:
     it: the macro-skip probes on ``state.skip_packed`` (``mip_pad=1``) and
     the lattice queries on ``state.binaries_packed``, recorded as
     ``traverse_and_compact`` makes them.  Exact, and equal to ``_query_soa``
-    on the unpacked grid.  Returns the largest difference."""
+    on the unpacked grid; each timed beside its bound.  Returns the largest
+    difference."""
     import nerfacc_tpu_torch.grid as grid_mod
     from nerfacc_tpu_torch.ops.occ_query import _query_soa, occupancy_query, occupancy_query_plain
 
@@ -311,7 +317,7 @@ def k1_on_train_inputs(step, state) -> float:
     finally:
         grid_mod.occupancy_query = occupancy_query
     unpacked = {id(state.skip_packed): state.skip_grid, id(state.binaries_packed): state.binaries}
-    kinds, err = set(), 0.0
+    kinds, timed, err = set(), set(), 0.0
     for packed, aabb, pts, rz, mip_pad in calls:
         if id(packed) not in unpacked:
             fail("K1 on the train path: a query on a grid that is neither skip_packed nor binaries_packed")
@@ -327,9 +333,70 @@ def k1_on_train_inputs(step, state) -> float:
               f"{int(out.sum())} occupied, {bad} mismatches", flush=True)
         if bad:
             fail(f"K1 disagrees with its plain version on {bad} train-path queries ({label})")
+        if (label, mip_pad) in kinds - timed:
+            timed.add((label, mip_pad))
+            ms = time_ms(lambda: occupancy_query(packed, aabb, *pts, rz=rz, mip_pad=mip_pad))
+            plain_ms = time_ms(lambda: occupancy_query_plain(packed, aabb, *pts, rz=rz, mip_pad=mip_pad))
+            nbytes, ops = k1_bytes_ops(pts[0].numel(), packed)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+            print(f"K1 train path, {label} mip_pad={mip_pad}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({nbytes} B), {100 * bound / ms:.1f}% of bound", flush=True)
     if kinds != {("skip_packed", 1), ("binaries_packed", 0)}:
         fail(f"K1 on the train path: expected skip probes and lattice queries, saw {sorted(kinds)}")
     return err
+
+
+def k3_checked_and_timed(label, ids, vals, n_cells, dev) -> dict:
+    """K3 on ``(ids, vals)``: exact against its plain version and
+    ``scatter_reduce_(amax)``, then its time, the plain version's, the
+    library call's and the bytes of its bound."""
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, cell_max_plain
+
+    ids_long = ids.long()
+
+    def library():
+        return torch.full((n_cells,), -1.0, device=dev).scatter_reduce_(0, ids_long, vals, "amax")
+
+    got, plain, lib = cell_max(ids, vals, n_cells), cell_max_plain(ids, vals, n_cells), library()
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    print(f"K3 {label}: {ids.numel()} draws into {n_cells} cells, {int((got >= 0).sum())} cells touched, "
+          f"max abs err {err} against plain, equal to scatter_reduce(amax): {torch.equal(got, lib)}", flush=True)
+    if not (torch.equal(got, plain) and torch.equal(got, lib)):
+        fail(f"K3 ({label}) is not exact against its plain version and scatter_reduce(amax)")
+    o = dict(
+        err=err, ms=time_ms(lambda: cell_max(ids, vals, n_cells)),
+        plain_ms=time_ms(lambda: cell_max_plain(ids, vals, n_cells)), library_ms=time_ms(library),
+        bytes=ids.numel() * 8 + n_cells * 4, ops=ids.numel(),
+    )
+    bound = o["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"K3 {label}: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, scatter_reduce "
+          f"{o['library_ms']:.4f} ms, bound {bound:.4f} ms, {100 * bound / o['ms']:.1f}% of bound", flush=True)
+    return o
+
+
+def k3_on_update_inputs(update, dev) -> dict:
+    """K3 on the ids and values that one real occupancy update gives it
+    (bench.py's post-warmup draws: a uniform half and a ``sysrow`` half of
+    rows of 128 ascending occupied ids), recorded as ``_update`` passes
+    them."""
+    import nerfacc_tpu_torch.estimators.occ_grid as occ_mod
+
+    cell_max = occ_mod.cell_max
+    calls = []
+
+    def recording(ids, vals, n_cells):
+        calls.append((ids, vals, n_cells))
+        return cell_max(ids, vals, n_cells)
+
+    occ_mod.cell_max = recording
+    try:
+        update()
+    finally:
+        occ_mod.cell_max = cell_max
+    if len(calls) != 1:
+        fail(f"K3 on the update: expected one call a one-level update, saw {len(calls)}")
+    return k3_checked_and_timed("on one update's draws", *calls[0], dev)
 
 
 def traversal_card_vs_cpu(est, shell, rays_o, rays_d, jitter, dev) -> None:
@@ -427,8 +494,6 @@ def kernels_vs_plain(dev) -> dict:
     """Phase 5: K2, K4 (its four modes), K5, K6 and K3 against their plain
     versions at the training shapes, and their times."""
     from nerfacc_tpu_torch.ops.table_grad import (
-        cell_max,
-        cell_max_plain,
         corner_weights,
         quantize_u10,
         table_grad_pos,
@@ -540,9 +605,17 @@ def kernels_vs_plain(dev) -> dict:
     print(f"torch.sort of {n_pairs} int32 (row, fetch) keys (outside K6): "
           f"{time_ms(lambda: torch.sort(g_key)):.4f} ms", flush=True)
 
-    # K3 at bench.py's update: 2^20 draws into 2^21 cells, half uniform and
-    # half from the occupied shell (so cells repeat), values in [0, 4e-3]
-    # with a cluster at 1e-3, where the TPU kernel's precision trap was.
+    ids, vals = k3_inputs(rng)
+    out["K3"] = k3_checked_and_timed("at phase 5's draws", torch.from_numpy(ids).to(dev),
+                                     torch.from_numpy(vals).to(dev), 1 << 21, dev)
+    return out
+
+
+def k3_inputs(rng) -> tuple:
+    """K3's draws at bench.py's update: 2^20 ids into 2^21 cells, half
+    uniform and half from the occupied shell (so cells repeat), values in
+    [0, 4e-3] with a cluster at 1e-3, where the TPU kernel's precision trap
+    was."""
     n_cells, n_draws = 1 << 21, 1 << 20
     occupied = np.flatnonzero(shell_binaries(128).reshape(-1))
     ids = np.concatenate([
@@ -550,44 +623,17 @@ def kernels_vs_plain(dev) -> dict:
     ]).astype(np.int32)
     vals = rng.random(n_draws, dtype=np.float32) * 4e-3
     vals[:4096] = (1e-3 * (1.0 + rng.uniform(-1e-6, 1e-6, 4096))).astype(np.float32)
-    ids_t, vals_t = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
-    got = cell_max(ids_t, vals_t, n_cells)
-    plain = cell_max_plain(ids_t, vals_t, n_cells)
-
-    def library():
-        return torch.full((n_cells,), -1.0, device=dev).scatter_reduce_(0, ids_t.long(), vals_t, "amax")
-
-    lib = library()
-    torch.cuda.synchronize()
-    err = float((got - plain).abs().max())
-    print(f"K3: {int((got >= 0).sum())} cells touched, max abs err {err} against plain, "
-          f"equal to scatter_reduce(amax): {torch.equal(got, lib)}", flush=True)
-    if not (torch.equal(got, plain) and torch.equal(got, lib)):
-        fail("K3 is not exact against its plain version and scatter_reduce(amax)")
-    ids_long = ids_t.long()
-    out["K3"] = dict(
-        err=err, ms=time_ms(lambda: cell_max(ids_t, vals_t, n_cells)),
-        plain_ms=time_ms(lambda: cell_max_plain(ids_t, vals_t, n_cells)),
-        library_ms=time_ms(lambda: torch.full((n_cells,), -1.0, device=dev).scatter_reduce_(
-            0, ids_long, vals_t, "amax")),
-        bytes=n_draws * 8 + n_cells * 4, ops=n_draws,
-    )
-    o = out["K3"]
-    print(
-        f"K3 at {n_draws} draws: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, "
-        f"scatter_reduce {o['library_ms']:.4f} ms, bound {o['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms",
-        flush=True,
-    )
-    return out
+    return ids, vals
 
 
-def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_k1):
+def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_inputs):
     """Phases 6 and 7: bench.py's throughput phase on the port with the
     field ``field_cfg``, whose table gradient launches ``grad_kernel``
-    (``grad_label`` in the prints); then, if ``check_k1``, K1 against its
-    plain version on one step's queries.  Returns the field (for phase 8),
-    the launches of K1, the table-gradient kernel and K3 on the train path,
-    and K1's largest difference on those queries (0 when not checked)."""
+    (``grad_label`` in the prints); then, if ``check_inputs``, K1 against
+    its plain version on one step's queries and K3 on one update's draws,
+    each timed.  Returns the field (for phase 8), the launches of K1, the
+    table-gradient kernel and K3 on the train path, and K1's largest
+    difference on those queries (0 when not checked)."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
     from nerfacc_tpu_torch.ops.occ_query import occupancy_query
@@ -658,7 +704,10 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
         fail(f"train: kernels launched too few times on the train path: {launches}")
     if not 0.5 * TRAIN_CAPACITY * TRAIN_ITERS < total <= TRAIN_CAPACITY * TRAIN_ITERS:
         fail(f"train: {total} samples in {TRAIN_ITERS} steps is not near the capacity")
-    k1_err = k1_on_train_inputs(step, state) if check_k1 else 0.0
+    k1_err = 0.0
+    if check_inputs:
+        k1_err = k1_on_train_inputs(step, state)
+        k3_on_update_inputs(update, dev)
 
     def steps_and_update():
         for _ in range(3):
@@ -795,26 +844,15 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
     return launches
 
 
-def k1_vs_plain(dev):
-    """Phase 2: K1 against its plain version on the render shape and on
-    adversarial points, and its times.  Returns the estimator and its state
-    (for phase 3) and K1's numbers for the kernel table."""
+def k1_render_inputs(dev, rng) -> tuple:
+    """K1 at the render shape: the estimator and its state on the shell,
+    the level-0 box, and 4096 rays x a 256-step window of query positions,
+    as traverse_grids computes them."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.grid import _march_ladder
-    from nerfacc_tpu_torch.ops.occ_query import (
-        _query_soa,
-        bitpack_grid,
-        occupancy_query,
-        occupancy_query_plain,
-    )
 
-    rng = np.random.default_rng(0)
     est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1)
     state = est.set_binaries(est.init(dev), torch.from_numpy(shell_binaries(GRID_RES)))
-    base = state.aabbs[0].contiguous()
-
-    # Render-shaped queries: 4096 rays x a 256-step window, positions as
-    # traverse_grids computes them.
     n_q_rays, window = CHUNK, 256
     d = rng.normal(size=(n_q_rays, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -824,6 +862,29 @@ def k1_vs_plain(dev):
     edges = _march_ladder(near, window + 1, STEP, 0.0)
     t_mid = (edges[:, :-1] + edges[:, 1:]) * 0.5
     pxyz = [(rays_o[:, i : i + 1] + t_mid * rays_d[:, i : i + 1]).contiguous() for i in range(3)]
+    return est, state, state.aabbs[0].contiguous(), pxyz
+
+
+def k1_bytes_ops(n_q: int, packed) -> tuple:
+    """K1's bytes (three float32 coordinates read and one byte written a
+    query, the packed grid read once) and float operations (~30 a query:
+    normalise, mip, three cells)."""
+    return n_q * (3 * 4 + 1) + packed.numel() * 4 + 6 * 4, n_q * 30
+
+
+def k1_vs_plain(dev):
+    """Phase 2: K1 against its plain version on the render shape and on
+    adversarial points, and its times.  Returns the estimator and its state
+    (for phase 3) and K1's numbers for the kernel table."""
+    from nerfacc_tpu_torch.ops.occ_query import (
+        _query_soa,
+        bitpack_grid,
+        occupancy_query,
+        occupancy_query_plain,
+    )
+
+    rng = np.random.default_rng(0)
+    est, state, base, pxyz = k1_render_inputs(dev, rng)
     packed, rz = state.binaries_packed, GRID_RES
 
     mismatches = 0
@@ -858,8 +919,7 @@ def k1_vs_plain(dev):
     k1_ms = time_ms(lambda: occupancy_query(packed, base, *pxyz, rz=rz))
     k1_plain_ms = time_ms(lambda: occupancy_query_plain(packed, base, *pxyz, rz=rz))
     n_q = pxyz[0].numel()
-    k1_bytes = n_q * (3 * 4 + 1) + packed.numel() * 4 + 6 * 4
-    k1_ops = n_q * 30  # ~30 float operations per query (normalise, mip, 3 cells)
+    k1_bytes, k1_ops = k1_bytes_ops(n_q, packed)
     k1_bound_bytes_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
     k1_bound_ops_ms = k1_ops / F32_OPS_PER_S * 1e3
     k1_bound_ms = max(k1_bound_bytes_ms, k1_bound_ops_ms)
@@ -1038,7 +1098,7 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {_build.kernel_names()}", flush=True)
-    for label, name in (("K2", "table_grad_u10"), ("K6", "table_grad_pos")):
+    for label, name in (("K1", "occ_query"), ("K2", "table_grad_u10"), ("K3", "cell_max"), ("K6", "table_grad_pos")):
         for line in _build.ptxas_report(name).splitlines():
             if any(word in line for word in ("Compiling entry", "Used", "spill")):
                 print(f"{label} ptxas: {line.replace('ptxas info    :', '').strip()}", flush=True)
@@ -1056,13 +1116,13 @@ def main(argv=None) -> None:
     # ---- 6. train at full width ---------------------------------------------
     if 6 in run:
         trained, train_launches, k1_train_err = train_full_width(
-            dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_k1=True
+            dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_inputs=True
         )
 
     # ---- 7. train at full width, tcnn shape (grouped encoder) ---------------
     if 7 in run:
         grouped, grouped_launches, _ = train_full_width(
-            dev, GROUPED_FIELD_CFG, table_grad_pos, "K6", "profile_train_grouped.txt", check_k1=False
+            dev, GROUPED_FIELD_CFG, table_grad_pos, "K6", "profile_train_grouped.txt", check_inputs=False
         )
 
     # ---- 8. train steps, card against CPU -----------------------------------

@@ -1,15 +1,27 @@
-"""Where the time of kernels K2 and K6 goes on one NVIDIA GPU.
+"""Where the time of kernels K1, K2, K3 and K6 goes on one NVIDIA GPU.
 
-    python3 kernel_variants.py            # both kernels
-    python3 kernel_variants.py k2         # one of them
+    python3 kernel_variants.py            # every kernel
+    python3 kernel_variants.py k1 k3      # some of them
 
 Builds variants of a kernel's source, each with one part changed by a text
 substitution, into ``build/kernel_variants/`` and times each on
-``chip_smoke.py``'s phase-5 inputs, three rounds in turn, with
-``chip_smoke.time_ms``.  Every time includes what the wrapper launches: the
-``torch.zeros`` of the output and the kernel (for K6 also the positions'
-pre-pass).  The variants that keep the function are held against the plain
-version.
+``chip_smoke.py``'s inputs (phase 2's for K1, phase 5's for the others),
+three rounds in turn, with ``chip_smoke.time_ms``.  Every time includes what
+the wrapper launches: for K2 and K6 the ``torch.zeros`` of the output and
+the kernel (for K6 also the positions' pre-pass).  The variants that keep
+the function are held against the plain version.
+
+K1 (``csrc/occ_query.cu``; 4096 x 256 render-shaped queries on the 128^3
+shell):
+
+- ``kernel``: the source as it is.
+- ``launch only``: every block returns at once, which leaves the launch.
+- ``no grid reads``: the grid-word index stands in for the word, so no
+  dependent read follows the coordinates (the result is wrong).
+- ``scalar coordinate loads``: four 4-byte loads a coordinate, not one
+  16-byte load.
+- ``a block per 1024 queries``: the grid is not cut to one wave.
+- ``128 threads a block``.
 
 K2 (``csrc/table_grad_u10.cu``; 2^21 sample-levels over 4 x 2^15 rows):
 
@@ -26,6 +38,23 @@ K2 (``csrc/table_grad_u10.cu``; 2^21 sample-levels over 4 x 2^15 rows):
 - ``in-order cotangents``: a sample reads the cotangent at its own place in
   the sorted order instead of the permutation's, which shows what the
   random gather costs (the result is wrong).
+
+K3 (``csrc/cell_max.cu``; 2^20 draws into 2^21 cells, each variant on phase
+5's draws, on the same draws sorted by id and on ``sysrow``-shaped draws):
+
+- ``kernel``: the source as it is, the bucket pass and the place pass.
+- ``bucket pass alone``, ``place pass alone``: one of the two launches (the
+  place pass reads the buckets that the bucket pass, timed just before it,
+  left in the same buffers).
+- ``windows of 4096``, ``8192`` and ``32768 cells``: 16, 32 or 128 KB of
+  shared memory a place block (the TPU kernel's window is 32768 cells).
+- ``chunks of 2048 draws``: four draws a bucket thread, not eight.
+- ``four draws in flight``: a place thread reads four draws before it places
+  them, not eight.
+- ``fill alone``: the first design's -1 fill of the output.
+- ``REDs alone, one a thread`` and ``four a thread``: the first design's
+  ``atomicMax`` into device memory, one draw a thread, or four from 16-byte
+  loads, on an output already filled.
 
 K6 (``csrc/table_grad_pos.cu``; 2^19 samples x 8 fetches over 2 x 2^16
 rows):
@@ -77,8 +106,65 @@ K2_LOAD_PAST_L1 = (
     "  return v;\n"
     "}\n\n" + K2_HELPERS
 )
+K1_WORD_READ = "      word[k][dp] = __ldg(g.packed + ((mp * g.rx + ix) * g.ry + iy) * g.words + (iz >> 5));\n"
+K1_COORDS = (
+    "    const float4 x4 = __ldg(reinterpret_cast<const float4*>(px) + q);\n"
+    "    const float4 y4 = __ldg(reinterpret_cast<const float4*>(py) + q);\n"
+    "    const float4 z4 = __ldg(reinterpret_cast<const float4*>(pz) + q);\n"
+)
+K1_BLOCKS = "  const int blocks = static_cast<int>(want < 1 ? 1 : (want < wave ? want : wave));\n"
+K3_BUCKET = (
+    "  if (nb > 0)\n"
+    "    cell_bucket_kernel<<<nb, kThreads, bucket_smem, s>>>(ids, vals, b, sg, static_cast<int>(n), n_cells,\n"
+    "                                                          nw, nb);\n"
+)
+K3_PLACE = "  cell_place_kernel<<<nw, kThreads, kWindow * 4, s>>>(b, sg, out, n_cells, nb);\n"
+K3_HELPERS = "// Dynamic shared memory above 48 KB must be asked for"
+K3_WINDOW = "constexpr int kWindowShift = 14;"
+# The first design's parts: a -1 fill, then one atomicMax a draw into device
+# memory (or four a thread, from 16-byte loads).
+K3_GLOBAL_KERNELS = """__global__ void fill_kernel(float* out, int n_cells) {
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n_cells / 4; i += gridDim.x * 256)
+    reinterpret_cast<float4*>(out)[i] = make_float4(-1.f, -1.f, -1.f, -1.f);
+}
+
+__global__ void reds_kernel(const int* ids, const float* vals, float* out, int n, int n_cells) {
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
+    const int id = __ldg(ids + i);
+    if (id >= 0 && id < n_cells) atomicMax(reinterpret_cast<int*>(out) + id, max_bits(__ldg(vals + i)));
+  }
+}
+
+__global__ void reds4_kernel(const int* ids, const float* vals, float* out, int n, int n_cells) {
+  for (int q = blockIdx.x * 256 + threadIdx.x; q < n / 4; q += gridDim.x * 256) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(ids) + q);
+    const float4 v = __ldg(reinterpret_cast<const float4*>(vals) + q);
+    const int id[4] = {a.x, a.y, a.z, a.w};
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    for (int k = 0; k < 4; ++k)
+      if (id[k] >= 0 && id[k] < n_cells) atomicMax(reinterpret_cast<int*>(out) + id[k], max_bits(x[k]));
+  }
+}
+
+"""
+
+
+def _k3_launch_only(launch: str) -> tuple:
+    return ((K3_HELPERS, K3_GLOBAL_KERNELS + K3_HELPERS), (K3_BUCKET + K3_PLACE, launch))
+
+
 # kernel -> (source name, ((variant name, keeps the function, substitutions), ...))
 VARIANTS = {
+    "k1": ("occ_query", (
+        ("kernel", True, ()),
+        ("launch only", False, (("  Box b;\n", "  if (n > 0) return;\n  Box b;\n"),)),
+        ("no grid reads", False, ((K1_WORD_READ, K1_WORD_READ.replace("__ldg(g.packed + ", "(")),)),
+        ("scalar coordinate loads", True, ((K1_COORDS, "".join(
+            f"    const float4 {a}4 = make_float4(__ldg(p{a} + 4 * q), __ldg(p{a} + 4 * q + 1), "
+            f"__ldg(p{a} + 4 * q + 2), __ldg(p{a} + 4 * q + 3));\n" for a in "xyz")),)),
+        ("a block per 1024 queries", True, ((K1_BLOCKS, "  const int blocks = static_cast<int>(want < 1 ? 1 : want);\n"),)),
+        ("128 threads a block", True, (("constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),)),
+    )),
     "k2": ("table_grad_u10", (
         ("kernel", True, ()),
         ("staging only", False, ((K2_WALK, K2_STAGE_ONLY),)),
@@ -96,6 +182,21 @@ VARIANTS = {
         ("in-order cotangents", False, ((K2_GATHER, (
             "      da[r] = __ldg(dout + 2 * (begin + i0 + r));\n"
             "      db[r] = __ldg(dout + 2 * (begin + i0 + r) + 1);\n")),)),
+    )),
+    "k3": ("cell_max", (
+        ("kernel", True, ()),
+        ("bucket pass alone", False, ((K3_PLACE, ""),)),
+        ("place pass alone", False, ((K3_BUCKET, ""),)),
+        ("windows of 4096 cells", True, ((K3_WINDOW, "constexpr int kWindowShift = 12;"),)),
+        ("windows of 8192 cells", True, ((K3_WINDOW, "constexpr int kWindowShift = 13;"),)),
+        ("windows of 32768 cells", True, ((K3_WINDOW, "constexpr int kWindowShift = 15;"),)),
+        ("chunks of 2048 draws", True, (("constexpr int kChunk = 4096;", "constexpr int kChunk = 2048;"),)),
+        ("four draws in flight", True, (("constexpr int kInFlight = 8;", "constexpr int kInFlight = 4;"),)),
+        ("fill alone", False, _k3_launch_only("  fill_kernel<<<(n_cells / 4 + 255) / 256, 256, 0, s>>>(out, n_cells);\n")),
+        ("REDs alone, one a thread", False, _k3_launch_only(
+            "  reds_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, s>>>(ids, vals, out, n, n_cells);\n")),
+        ("REDs alone, four a thread", False, _k3_launch_only(
+            "  reds4_kernel<<<static_cast<int>((n / 4 + 255) / 256), 256, 0, s>>>(ids, vals, out, n, n_cells);\n")),
     )),
     "k6": ("table_grad_pos", (
         ("kernel", True, ()),
@@ -146,10 +247,80 @@ def build(kernel: str, out_dir: Path) -> dict:
     return libs
 
 
+def _zeros_aside(n_rows, dev) -> dict:
+    return {"torch.zeros of the output alone": lambda: torch.zeros((n_rows, 128), device=dev)}
+
+
+def k1_run(dev):
+    """K1 on phase 2's render-shaped queries (4096 rays x 256 steps on the
+    128^3 shell): a function that launches a library's kernel, the launch
+    function's name and argument types, the plain version's result, and
+    what is timed beside the variants."""
+    from nerfacc_tpu_torch.ops import _build
+    from nerfacc_tpu_torch.ops import occ_query as oq
+
+    _, state, base, (px, py, pz) = cs.k1_render_inputs(dev, np.random.default_rng(0))
+    packed = state.binaries_packed
+    levels, rx, ry, words = packed.shape
+
+    def run(lib):
+        out = torch.empty(px.shape, dtype=torch.bool, device=dev)
+        rc = lib.occ_query_launch(px.data_ptr(), py.data_ptr(), pz.data_ptr(), packed.data_ptr(), base.data_ptr(),
+                                  out.data_ptr(), px.numel(), levels, rx, ry, cs.GRID_RES, words, 0,
+                                  torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, rc, "occ_query_launch")
+        return out
+
+    want = oq.occupancy_query_plain(packed, base, px, py, pz, rz=cs.GRID_RES)
+    return {"": (run, want)}, "occ_query_launch", oq._launcher()[1].argtypes, {
+        "the plain version": lambda: oq.occupancy_query_plain(packed, base, px, py, pz, rz=cs.GRID_RES),
+    }
+
+
+def k3_run(dev):
+    """K3 on phase 5's draws (2^20 into 2^21 cells), on the same draws
+    sorted by id, and on ``sysrow``-shaped draws (a uniform half, and rows of
+    128 ascending occupied ids of the shell at a fixed stride, as an update
+    draws them): for each, a function that launches a library's kernel into
+    buffers of its own (the place pass alone reads the buckets an earlier
+    call left there) and the plain version's result."""
+    from nerfacc_tpu_torch.ops import _build
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    rng = np.random.default_rng(1)
+    ids, vals = cs.k3_inputs(rng)
+    n_cells, n = 1 << 21, ids.size
+    occupied = np.flatnonzero(cs.shell_binaries(128).reshape(-1))
+    rows = -(-occupied.size // 128)
+    occupied = np.concatenate([occupied, occupied[-1:].repeat(rows * 128 - occupied.size)]).reshape(rows, 128)
+    pick = np.minimum(((np.arange(n // 256) + rng.random()) * (rows / (n // 256))).astype(np.int64), rows - 1)
+    sysrow = np.concatenate([rng.integers(0, n_cells, n // 2), occupied[pick].reshape(-1)]).astype(np.int32)
+    order = np.argsort(ids, kind="stable")
+    inputs = {}
+    for label, (i_np, v_np) in {
+        "phase 5's draws": (ids, vals), "sorted": (ids[order], vals[order]), "sysrow-shaped": (sysrow, vals),
+    }.items():
+        i_t = torch.from_numpy(np.ascontiguousarray(i_np)).to(dev)
+        v_t = torch.from_numpy(np.ascontiguousarray(v_np)).to(dev)
+        out = torch.full((n_cells,), -1.0, device=dev)
+        bucket = torch.empty((n, 2), dtype=torch.int32, device=dev)
+        # Room for the variants' smallest windows (4096 cells) and chunks (2048 draws).
+        seg = torch.empty((n_cells // 4096 * -(-n // 2048), 2), dtype=torch.int32, device=dev)
+
+        def run(lib, i_t=i_t, v_t=v_t, out=out, bucket=bucket, seg=seg):
+            rc = lib.cell_max_launch(i_t.data_ptr(), v_t.data_ptr(), out.data_ptr(), bucket.data_ptr(),
+                                     seg.data_ptr(), n, n_cells, torch.cuda.current_stream().cuda_stream)
+            _build.check(lib, rc, "cell_max_launch")
+            return out
+
+        inputs[label] = (run, tg.cell_max_plain(i_t, v_t, n_cells))
+    return inputs, "cell_max_launch", tg._cell_max_lib().cell_max_launch.argtypes, {
+        "torch.full of the output alone": lambda: torch.full((n_cells,), -1.0, device=dev),
+    }
+
+
 def k2_run(dev):
-    """K2 on phase 5's inputs: a function that launches a library's kernel,
-    the launch function's name and argument types, the plain version's
-    result and the row count."""
+    """K2 on phase 5's inputs: the same, and the output's zeroing beside."""
     from nerfacc_tpu_torch.ops import table_grad as tg
 
     u = cs.shell_points(np.random.default_rng(1), cs.TRAIN_CAPACITY, dev)
@@ -162,7 +333,7 @@ def k2_run(dev):
 
     argtypes = tg._table_grad_u10_lib().table_grad_u10_launch.argtypes
     want = tg.table_grad_u10_plain(sorted_idx, perm, wq, dout, n_rows)
-    return run, "table_grad_u10_launch", argtypes, want, n_rows
+    return {"": (run, want)}, "table_grad_u10_launch", argtypes, _zeros_aside(n_rows, dev)
 
 
 def k6_run(dev):
@@ -183,7 +354,7 @@ def k6_run(dev):
                           n, nf, jg, F, tg.ROW_WIDTH // (8 * F), res, j_lo, key, span=tg.K6_TILE)
 
     argtypes = tg._table_grad_pos_lib().table_grad_pos_launch.argtypes
-    return run, "table_grad_pos_launch", argtypes, tg.table_grad_pos_plain(*args), n_rows
+    return {"": (run, tg.table_grad_pos_plain(*args))}, "table_grad_pos_launch", argtypes, _zeros_aside(n_rows, dev)
 
 
 def main(argv=None) -> None:
@@ -196,26 +367,38 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
+    runs = {"k1": k1_run, "k2": k2_run, "k3": k3_run, "k6": k6_run}
     for kernel in kernels:
-        run, fn_name, argtypes, want, n_rows = {"k2": k2_run, "k6": k6_run}[kernel](dev)
+        inputs, fn_name, argtypes, aside = runs[kernel](dev)
         libs = build(kernel, Path("build/kernel_variants"))
         for (name, keeps, _), lib in zip(VARIANTS[kernel][1], libs.values()):
             getattr(lib, fn_name).argtypes = argtypes
             getattr(lib, fn_name).restype = ctypes.c_int
-            if keeps:
-                err = float((run(lib) - want).abs().max())
-                if not err <= 1e-5 * float(want.abs().max()):
-                    cs.fail(f"{kernel} variant {name!r} disagrees with the plain version: {err}")
-        del want
-        times = {name: [] for name in libs}
-        for _ in range(3):
-            for name, lib in libs.items():
-                times[name].append(cs.time_ms(lambda: run(lib)))
-        for name, ms in times.items():
-            print(f"{kernel} variant {name}: {float(np.median(ms)):.4f} ms "
-                  f"(rounds {', '.join(f'{t:.4f}' for t in ms)})", flush=True)
-        print(f"{kernel}: torch.zeros of the output alone: "
-              f"{cs.time_ms(lambda: torch.zeros((n_rows, 128), device=dev)):.4f} ms", flush=True)
+            for label, (run, want) in inputs.items():
+                if not keeps:
+                    continue
+                got = run(lib)
+                if kernel in ("k1", "k3"):  # exact; K3 bit for bit
+                    if kernel == "k3":
+                        got, want = got.view(torch.int32), want.view(torch.int32)
+                    err = int((got != want).sum())
+                    agree = err == 0
+                else:
+                    err = float((got - want).abs().max())
+                    agree = err <= 1e-5 * float(want.abs().max())
+                if not agree:
+                    cs.fail(f"{kernel} variant {name!r} disagrees with the plain version{label and ' on ' + label}: {err}")
+        for label, (run, _) in inputs.items():
+            times = {name: [] for name in libs}
+            for _ in range(3):
+                for name, lib in libs.items():
+                    times[name].append(cs.time_ms(lambda: run(lib)))
+            for name, ms in times.items():
+                print(f"{kernel} variant {name}{label and ' [' + label + ']'}: {float(np.median(ms)):.4f} ms "
+                      f"(rounds {', '.join(f'{t:.4f}' for t in ms)})", flush=True)
+        del inputs
+        for label, fn in aside.items():
+            print(f"{kernel}: {label}: {cs.time_ms(fn):.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

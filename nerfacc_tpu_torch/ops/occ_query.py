@@ -10,6 +10,15 @@ hand-written kernel ``csrc/occ_query.cu``; on a CPU tensor it runs
 Packed layout: ``(levels, rx, ry, ceil(rz / 32))`` int32 words; bit ``b`` of
 word ``[l, ix, iy, w]`` is cell ``(l, ix, iy, 32 * w + b)``.  Unlike the TPU
 layout (``(rx, ry * words)`` padded to 128 lanes) nothing is padded.
+
+Non-finite points are part of the contract: the JAX kernel pads its queries
+with ``+inf``.  Such a point takes mip level 1 (``frexp`` of ``inf`` or NaN
+has exponent 0), so at two or more levels its cell is looked up, and the
+float-to-int32 cast of its coordinate decides which.  XLA's cast saturates
+(NaN to 0, out-of-range values to the int32 limits), as CUDA's
+``cvt.rzi.s32.f32`` does; PyTorch's ``.to(torch.int32)`` on the CPU maps
+all of them to ``-2^31``.  :func:`_cells` therefore casts through
+:func:`_trunc_int32`, which saturates.
 """
 
 from __future__ import annotations
@@ -59,6 +68,14 @@ def _mip(nx: Tensor, ny: Tensor, nz: Tensor) -> Tensor:
     return (exponent + 1).clamp(min=0)
 
 
+def _trunc_int32(v: Tensor) -> Tensor:
+    """Float to int32 toward zero, saturating as XLA's cast does: NaN to 0,
+    values beyond the int32 range (``+-inf`` too) to the float32 nearest
+    inside it, ``-2^31`` or ``2^31 - 128``."""
+    v = torch.where(torch.isnan(v), 0.0, v).clamp(-2147483648.0, 2147483520.0)
+    return v.to(torch.int32)
+
+
 def _cells(nx, ny, nz, mip, levels: int, res: Sequence[int], mip_pad: int):
     """Yield ``(mip_p, ix, iy, iz)`` for each level the lookup unions."""
     rx, ry, rz = res
@@ -67,7 +84,7 @@ def _cells(nx, ny, nz, mip, levels: int, res: Sequence[int], mip_pad: int):
         inv_scale = torch.exp2(-mip_p.to(nx.dtype))
 
         def cell(coord, r, s=inv_scale):
-            return ((coord * s + 0.5) * r).to(torch.int32).clamp(0, r - 1)
+            return _trunc_int32((coord * s + 0.5) * r).clamp(0, r - 1)
 
         yield mip_p, cell(nx, rx), cell(ny, ry), cell(nz, rz)
 
@@ -148,7 +165,10 @@ def occupancy_query(
     :func:`bitpack_grid`; ``base_aabb`` the ``(6,)`` level-0 box, with level
     ``l`` the ``2^l``-enlarged box.  Returns bool shaped like ``px``.  A CPU
     tensor takes :func:`occupancy_query_plain`; a CUDA tensor launches the
-    kernel (one launch for all levels) or raises.
+    kernel (one launch for all levels) or raises.  The kernel reads each
+    coordinate array 16 bytes at a time, so on the card they must be
+    16-byte aligned, as fresh tensors are, and it unions at most two levels
+    (``mip_pad`` 0 or 1).
     """
     if px.device.type == "cpu":
         return occupancy_query_plain(packed, base_aabb, px, py, pz, rz, mip_pad)
@@ -159,8 +179,14 @@ def occupancy_query(
             raise ValueError(f"occupancy_query: {name} must be contiguous float32")
         if t.shape != px.shape or t.device != px.device:
             raise ValueError("occupancy_query: px, py, pz must match in shape and device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"occupancy_query: {name} must be 16-byte aligned (the kernel reads it 16 bytes at a time)")
+    if mip_pad not in (0, 1):
+        raise ValueError(f"occupancy_query: mip_pad={mip_pad}; the kernel unions at most two levels (0 or 1)")
     if packed.dtype != torch.int32 or packed.ndim != 4 or not packed.is_contiguous():
         raise ValueError("occupancy_query: packed must be contiguous (levels, rx, ry, words) int32")
+    if packed.shape[0] > 126 or packed.numel() >= 1 << 31:
+        raise ValueError("occupancy_query: packed must have at most 126 levels and fewer than 2^31 words")
     if packed.shape[3] != -(-rz // 32):
         raise ValueError(f"occupancy_query: packed has {packed.shape[3]} words per row, rz={rz} needs {-(-rz // 32)}")
     if base_aabb.dtype != torch.float32 or base_aabb.numel() != 6 or not base_aabb.is_contiguous():

@@ -34,11 +34,12 @@ def cuda():
 
 def _points(levels, res, rng, n=20000):
     """Every level's cell faces, the box's +-0.5 faces and just inside them,
-    z cells that are a word's last bit, and random points over all levels."""
+    z cells that are a word's last bit, +-inf and NaN coordinates, and random
+    points over all levels."""
     faces = np.concatenate(
         [(np.arange(res + 1, dtype=np.float32) / res - 0.5) * 2.0**l for l in range(levels)]
     )
-    special = np.array([-0.5, 0.5, -0.5000001, 0.4999999, 0.0], np.float32)
+    special = np.array([-0.5, 0.5, -0.5000001, 0.4999999, 0.0, np.inf, -np.inf, np.nan], np.float32)
     z31 = ((np.arange(31, res, 32) + 0.5) / res - 0.5).astype(np.float32)
     coords = np.concatenate([faces, special, z31])
     scale = 2.0 ** (levels + 1)
@@ -69,6 +70,56 @@ def test_kernel_matches_plain_version_on_the_card(cuda, levels, res):
         # Exact: the kernel does the plain version's float arithmetic.
         assert torch.equal(out, plain)
         assert 0 < int(out.sum()) < out.numel()
+        # Points with a non-finite coordinate: inside the selector (and some
+        # occupied) at 4 levels, never at 1.
+        bad = ~torch.isfinite(p).all(dim=1)
+        assert int(bad.sum()) > 0 and bool(out[bad].any()) == (levels > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4097, 4098, 4099, 3_000_001])
+def test_k1_takes_counts_that_are_not_a_multiple_of_four(cuda, n):
+    # The kernel takes four queries a thread and the last n % 4 one a
+    # thread; 3,000,001 queries are more than one wave of resident threads
+    # takes, so the grid-stride loop turns.
+    rng = np.random.default_rng(n)
+    levels, res = 4, 32
+    grid = torch.from_numpy(rng.random((levels, res, res, res)) < 0.3).to(cuda)
+    packed = bitpack_grid(grid)
+    p = _points(levels, res, rng, n=max(1, n // 2))
+    p = np.resize(p, (n, 3))  # repeats the points to n rows
+    pt = [torch.from_numpy(np.ascontiguousarray(p[:, i])).to(cuda) for i in range(3)]
+    aabb = torch.from_numpy(AABB).to(cuda)
+    for mip_pad in (0, 1):
+        before = occupancy_query.launches
+        out = occupancy_query(packed, aabb, *pt, rz=res, mip_pad=mip_pad)
+        assert occupancy_query.launches == before + 1
+        plain = occupancy_query_plain(packed, aabb, *pt, rz=res, mip_pad=mip_pad)
+        torch.cuda.synchronize()
+        assert out.shape == (n,) and torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+def test_k1_on_a_skip_grid_with_mip_pad(cuda):
+    # The macro-skip probes: mip_pad=1 on the 64^3 skip grid of a 128^3
+    # estimator with skip_factor 2, against _query_soa on the unpacked grid.
+    from nerfacc_tpu_torch.ops.occ_query import _query_soa
+
+    est = OccGridEstimator(roi_aabb=AABB.tolist(), resolution=128, levels=1, skip_factor=2)
+    rng = np.random.default_rng(11)
+    state = est.set_binaries(est.init(cuda), torch.from_numpy(rng.random((1, 128, 128, 128)) < 0.05))
+    assert tuple(state.skip_grid.shape) == (1, 64, 64, 64)
+    p = torch.from_numpy(_points(1, 64, rng, n=100_000)).to(cuda)
+    pt = [p[:, i].contiguous() for i in range(3)]
+    aabb = state.aabbs[0].contiguous()
+    before = occupancy_query.launches
+    out = occupancy_query(state.skip_packed, aabb, *pt, rz=64, mip_pad=1)
+    assert occupancy_query.launches == before + 1
+    plain = occupancy_query_plain(state.skip_packed, aabb, *pt, rz=64, mip_pad=1)
+    ref, _ = _query_soa(*pt, state.skip_grid, aabb, mip_pad=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain) and torch.equal(out, ref)
+    assert 0 < int(out.sum()) < out.numel()
 
 
 @pytest.mark.cuda
@@ -112,6 +163,12 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         occupancy_query(packed, aabb, p[0], p[1], p[2], rz=64)
     with pytest.raises(ValueError, match="one device"):
         occupancy_query(packed.cpu(), aabb, p[0], p[1], p[2], rz=32)
+    # A view 4 bytes into a tensor: the kernel reads 16 bytes at a time.
+    q = torch.zeros(65, device=cuda)
+    with pytest.raises(ValueError, match="py must be 16-byte aligned"):
+        occupancy_query(packed, aabb, p[0], q[1:], p[2], rz=32)
+    with pytest.raises(ValueError, match="at most two levels"):
+        occupancy_query(packed, aabb, p[0], p[1], p[2], rz=32, mip_pad=2)
 
 
 def _sorted_factors(rng, n, n_rows, device):
@@ -239,6 +296,65 @@ def test_cell_max_kernel_is_exact_on_the_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, cell_max_plain(ids, vals, n_cells))
     assert torch.equal(got, library)
+
+
+K3_CASES = (
+    "ragged-1", "ragged-3", "ragged-1001", "ragged-1048579",  # counts that are not a multiple of the tile
+    "out-of-range",  # ids below 0 and at or above n_cells, which are skipped
+    "one-id",        # one id drawn 65,536 times
+    "distinct",      # 2^20 distinct ids
+    "sysrow",        # a uniform half and rows of 128 ascending occupied ids, as the update draws
+    "zeros",         # 0.0, -0.0 (which counts as 0.0) and subnormal values
+    "odd-cells",     # a cell count that is not a multiple of 4 or of a window
+)
+
+
+def _k3_inputs(case, device):
+    """K3's ``(ids, vals, n_cells)`` for one case of the card test."""
+    rng = np.random.default_rng(K3_CASES.index(case))
+    kind, _, size = case.partition("-")
+    n_cells = (1 << 21) - 3 if kind == "odd" else 1 << 21
+    n = int(size) if kind == "ragged" else 65_536 if kind == "one" else 1 << 20
+    ids = rng.integers(0, n_cells, n)
+    vals = rng.random(n, dtype=np.float32) * 4e-3
+    if kind == "out":
+        bad = rng.random(n) < 0.2
+        ids[bad] = rng.choice([-1, -(2**31), n_cells, n_cells + 5, 2**31 - 1], int(bad.sum()))
+    elif kind == "one":
+        ids[:] = 777
+    elif kind == "distinct":
+        ids = rng.permutation(n_cells)[:n]
+    elif kind == "sysrow":
+        occupied = np.flatnonzero(rng.random(n_cells) < 0.08)
+        rows = occupied[: occupied.size // 128 * 128].reshape(-1, 128)
+        pick = np.minimum(((np.arange(n // 256) + rng.random()) * (len(rows) / (n // 256))).astype(int), len(rows) - 1)
+        ids[n // 2 :] = rows[pick].reshape(-1)
+    elif kind == "zeros":
+        ids = rng.integers(0, 1 << 20, n)  # about one draw a cell: many hold only -0.0
+        vals = rng.choice(np.array([0.0, -0.0, 1e-45, 3e-45, 1e-39, 1.2e-38], np.float32), n)
+    return (torch.from_numpy(ids.astype(np.int32)).to(device), torch.from_numpy(vals.astype(np.float32)).to(device),
+            n_cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_matches_its_plain_version_on_the_card(cuda, case):
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, cell_max_plain
+
+    ids, vals, n_cells = _k3_inputs(case, cuda)
+    before = cell_max.launches
+    got = cell_max(ids, vals, n_cells)
+    assert cell_max.launches == before + 1
+    # The kernel skips ids outside [0, n_cells); the plain version and the
+    # library call take only the others.
+    keep = (ids >= 0) & (ids < n_cells)
+    want = cell_max_plain(ids[keep], vals[keep], n_cells)
+    library = torch.full((n_cells,), -1.0, device=cuda).scatter_reduce_(0, ids[keep].long(), vals[keep], "amax")
+    torch.cuda.synchronize()
+    # Exact, bit for bit: -0.0 is taken as +0.0, untouched cells are -1.
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, library)
+    assert int((got >= 0).sum()) == int(torch.unique(ids[keep]).numel())
 
 
 @pytest.mark.cuda

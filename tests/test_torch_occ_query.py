@@ -75,6 +75,51 @@ def test_plain_query_matches_query_soa_exactly(levels, res, mip_pad):
     assert 0 < int(got.sum()) < got.numel()
 
 
+def non_finite_points():
+    """The 343 points of ``{0, 0.3, -0.2, 1.2, +inf, -inf, NaN}^3`` in the
+    normalised box."""
+    v = np.array([0.0, 0.3, -0.2, 1.2, np.inf, -np.inf, np.nan], np.float32)
+    nrm = np.stack(np.meshgrid(v, v, v, indexing="ij"), -1).reshape(-1, 3)
+    return (AABB[:3] + (nrm + 0.5) * (AABB[3:] - AABB[:3])).astype(np.float32)
+
+
+@pytest.mark.parametrize("levels,mip_pad", [(1, 0), (1, 1), (4, 0), (4, 1)])
+def test_query_matches_query_soa_on_non_finite_points(levels, mip_pad):
+    # A non-finite point takes mip level 1, so at 4 levels its cell is looked
+    # up: the float-to-int32 cast of inf and NaN must saturate as XLA's does.
+    p = non_finite_points()
+    finite = np.isfinite(p).all(axis=1)
+    pt = [torch.from_numpy(np.ascontiguousarray(p[:, i])) for i in range(3)]
+    aabb = torch.from_numpy(AABB)
+    for seed in range(3):
+        grid = np.random.default_rng(seed).random((levels, 16, 16, 16)) < 0.5
+        want, want_sel = j_query_soa(
+            *(jnp.asarray(p[:, i]) for i in range(3)), jnp.asarray(grid), jnp.asarray(AABB),
+            mip_pad=mip_pad,
+        )
+        got, got_sel = _query_soa(*pt, torch.from_numpy(grid), aabb, mip_pad=mip_pad)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got_sel.numpy(), np.asarray(want_sel))
+        plain = occupancy_query_plain(bitpack_grid(torch.from_numpy(grid)), aabb, *pt, rz=16, mip_pad=mip_pad)
+        np.testing.assert_array_equal(plain.numpy(), np.asarray(want))
+        # At 4 levels non-finite points are inside the selector and some hit.
+        assert bool(got[~finite].any()) == (levels > 1)
+
+
+def test_plain_query_matches_pallas_interpret_on_non_finite_points():
+    rng = np.random.default_rng(7)
+    grid = rng.random((16, 16, 16)) < 0.5
+    p = non_finite_points()
+    want = occupancy_query_pallas(
+        j_bitpack(jnp.asarray(grid)), jnp.asarray(AABB), *(jnp.asarray(p[:, i]) for i in range(3)),
+        resolution=(16, 16, 16), tm=8, interpret=True,
+    )
+    pt = [torch.from_numpy(np.ascontiguousarray(p[:, i])) for i in range(3)]
+    got = occupancy_query_plain(bitpack_grid(torch.from_numpy(grid)[None]), torch.from_numpy(AABB), *pt, rz=16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < int(got.sum())
+
+
 @pytest.mark.parametrize("res", [(32, 32, 32), (32, 16, 48)])
 def test_plain_query_matches_pallas_interpret(res):
     rng = np.random.default_rng(5)

@@ -102,3 +102,11 @@ def test_k6_variant_substitutions_match_the_kernel_source(monkeypatch):
 
 def test_k2_variant_substitutions_match_the_kernel_source(monkeypatch):
     _variants_match_their_source(monkeypatch, "k2", 8)
+
+
+def test_k1_variant_substitutions_match_the_kernel_source(monkeypatch):
+    _variants_match_their_source(monkeypatch, "k1", 6)
+
+
+def test_k3_variant_substitutions_match_the_kernel_source(monkeypatch):
+    _variants_match_their_source(monkeypatch, "k3", 11)
