@@ -40,21 +40,17 @@ K2 (``csrc/table_grad_u10.cu``; 2^21 sample-levels over 4 x 2^15 rows):
   random gather costs (the result is wrong).
 
 K3 (``csrc/cell_max.cu``; 2^20 draws into 2^21 cells, each variant on phase
-5's draws, on the same draws sorted by id and on ``sysrow``-shaped draws):
+5's draws, on the same draws sorted by id and on ``sysrow``-shaped draws,
+into an output filled with -1 beforehand; the wrapper, which fills it with
+``torch.full`` first, and the fill alone are timed beside them):
 
-- ``kernel``: the source as it is, the bucket pass and the place pass.
-- ``bucket pass alone``, ``place pass alone``: one of the two launches (the
-  place pass reads the buckets that the bucket pass, timed just before it,
-  left in the same buffers).
-- ``windows of 4096``, ``8192`` and ``32768 cells``: 16, 32 or 128 KB of
-  shared memory a place block (the TPU kernel's window is 32768 cells).
-- ``chunks of 2048 draws``: four draws a bucket thread, not eight.
-- ``four draws in flight``: a place thread reads four draws before it places
-  them, not eight.
-- ``fill alone``: the first design's -1 fill of the output.
-- ``REDs alone, one a thread`` and ``four a thread``: the first design's
-  ``atomicMax`` into device memory, one draw a thread, or four from 16-byte
-  loads, on an output already filled.
+- ``kernel``: the source as it is, one ``atomicMax`` a draw into device
+  memory.
+- ``launch only``: every block returns at once.
+- ``four draws a thread``: 16-byte loads of the ids and values.
+- ``fill and atomics in one cooperative launch``: the -1 fill and the
+  atomics in one kernel, across a grid-wide barrier (so it needs no
+  ``torch.full``).
 
 K6 (``csrc/table_grad_pos.cu``; 2^19 samples x 8 fetches over 2 x 2^16
 rows):
@@ -113,44 +109,64 @@ K1_COORDS = (
     "    const float4 z4 = __ldg(reinterpret_cast<const float4*>(pz) + q);\n"
 )
 K1_BLOCKS = "  const int blocks = static_cast<int>(want < 1 ? 1 : (want < wave ? want : wave));\n"
-K3_BUCKET = (
-    "  if (nb > 0)\n"
-    "    cell_bucket_kernel<<<nb, kThreads, bucket_smem, s>>>(ids, vals, b, sg, static_cast<int>(n), n_cells,\n"
-    "                                                          nw, nb);\n"
+K3_LAUNCH = (
+    "  cell_max_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+    "      ids, vals, reinterpret_cast<int*>(out), n, n_cells);\n"
 )
-K3_PLACE = "  cell_place_kernel<<<nw, kThreads, kWindow * 4, s>>>(b, sg, out, n_cells, nb);\n"
-K3_HELPERS = "// Dynamic shared memory above 48 KB must be asked for"
-K3_WINDOW = "constexpr int kWindowShift = 14;"
-# The first design's parts: a -1 fill, then one atomicMax a draw into device
-# memory (or four a thread, from 16-byte loads).
-K3_GLOBAL_KERNELS = """__global__ void fill_kernel(float* out, int n_cells) {
-  for (int i = blockIdx.x * 256 + threadIdx.x; i < n_cells / 4; i += gridDim.x * 256)
-    reinterpret_cast<float4*>(out)[i] = make_float4(-1.f, -1.f, -1.f, -1.f);
-}
-
-__global__ void reds_kernel(const int* ids, const float* vals, float* out, int n, int n_cells) {
-  for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
-    const int id = __ldg(ids + i);
-    if (id >= 0 && id < n_cells) atomicMax(reinterpret_cast<int*>(out) + id, max_bits(__ldg(vals + i)));
-  }
-}
-
-__global__ void reds4_kernel(const int* ids, const float* vals, float* out, int n, int n_cells) {
-  for (int q = blockIdx.x * 256 + threadIdx.x; q < n / 4; q += gridDim.x * 256) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(ids) + q);
-    const float4 v = __ldg(reinterpret_cast<const float4*>(vals) + q);
+K3_NAMESPACE_END = "}  // namespace\n"
+K3_FOUR = """__global__ void four_kernel(const int4* __restrict__ ids, const float4* __restrict__ vals,
+                            int* __restrict__ out_bits, int64_t quads, int n_cells) {
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; q < quads;
+       q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int4 a = __ldg(ids + q);
+    const float4 v = __ldg(vals + q);
     const int id[4] = {a.x, a.y, a.z, a.w};
     const float x[4] = {v.x, v.y, v.z, v.w};
-    for (int k = 0; k < 4; ++k)
-      if (id[k] >= 0 && id[k] < n_cells) atomicMax(reinterpret_cast<int*>(out) + id[k], max_bits(x[k]));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (id[k] < 0 || id[k] >= n_cells) continue;
+      int bits = __float_as_int(x[k]);
+      if (bits == INT_MIN) bits = 0;
+      atomicMax(out_bits + id[k], bits);
+    }
   }
 }
 
 """
+K3_FOUR_LAUNCH = (
+    "  four_kernel<<<static_cast<int>((n / 4 + threads - 1) / threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+    "      reinterpret_cast<const int4*>(ids), reinterpret_cast<const float4*>(vals), reinterpret_cast<int*>(out), n / 4,\n"
+    "      n_cells);\n"
+)
+# Candidate (a): the -1 fill and the atomics in one cooperative launch,
+# across a grid-wide barrier.
+K3_COOP = """__global__ void fill_and_place_kernel(const int32_t* __restrict__ ids, const float* __restrict__ vals,
+                                      int* __restrict__ out_bits, int64_t n, int n_cells) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int m = __float_as_int(-1.0f);
+  for (int64_t i = first; i < n_cells / 4; i += stride) reinterpret_cast<int4*>(out_bits)[i] = make_int4(m, m, m, m);
+  for (int64_t i = n_cells / 4 * 4 + first; i < n_cells; i += stride) out_bits[i] = m;
+  cooperative_groups::this_grid().sync();
+  for (int64_t i = first; i < n; i += stride) {
+    const int id = __ldg(ids + i);
+    if (id < 0 || id >= n_cells) continue;
+    int bits = __float_as_int(__ldg(vals + i));
+    if (bits == INT_MIN) bits = 0;
+    atomicMax(out_bits + id, bits);
+  }
+}
 
-
-def _k3_launch_only(launch: str) -> tuple:
-    return ((K3_HELPERS, K3_GLOBAL_KERNELS + K3_HELPERS), (K3_BUCKET + K3_PLACE, launch))
+"""
+K3_COOP_LAUNCH = """  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fill_and_place_kernel, threads, 0);
+  int* out_bits = reinterpret_cast<int*>(out);
+  void* args[] = {&ids, &vals, &out_bits, &n, &n_cells};
+  cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fill_and_place_kernel), sms * per_sm, threads, args, 0,
+                              static_cast<cudaStream_t>(stream));
+"""
 
 
 # kernel -> (source name, ((variant name, keeps the function, substitutions), ...))
@@ -185,18 +201,13 @@ VARIANTS = {
     )),
     "k3": ("cell_max", (
         ("kernel", True, ()),
-        ("bucket pass alone", False, ((K3_PLACE, ""),)),
-        ("place pass alone", False, ((K3_BUCKET, ""),)),
-        ("windows of 4096 cells", True, ((K3_WINDOW, "constexpr int kWindowShift = 12;"),)),
-        ("windows of 8192 cells", True, ((K3_WINDOW, "constexpr int kWindowShift = 13;"),)),
-        ("windows of 32768 cells", True, ((K3_WINDOW, "constexpr int kWindowShift = 15;"),)),
-        ("chunks of 2048 draws", True, (("constexpr int kChunk = 4096;", "constexpr int kChunk = 2048;"),)),
-        ("four draws in flight", True, (("constexpr int kInFlight = 8;", "constexpr int kInFlight = 4;"),)),
-        ("fill alone", False, _k3_launch_only("  fill_kernel<<<(n_cells / 4 + 255) / 256, 256, 0, s>>>(out, n_cells);\n")),
-        ("REDs alone, one a thread", False, _k3_launch_only(
-            "  reds_kernel<<<static_cast<int>((n + 255) / 256), 256, 0, s>>>(ids, vals, out, n, n_cells);\n")),
-        ("REDs alone, four a thread", False, _k3_launch_only(
-            "  reds4_kernel<<<static_cast<int>((n / 4 + 255) / 256), 256, 0, s>>>(ids, vals, out, n, n_cells);\n")),
+        ("launch only", False, (("  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;\n",
+                                 "  if (n > 0) return;\n  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;\n"),)),
+        ("four draws a thread", True, ((K3_NAMESPACE_END, K3_FOUR + K3_NAMESPACE_END), (K3_LAUNCH, K3_FOUR_LAUNCH))),
+        ("fill and atomics in one cooperative launch", True, (
+            ('#include "common.cuh"\n', '#include <cooperative_groups.h>\n\n#include "common.cuh"\n'),
+            (K3_NAMESPACE_END, K3_COOP + K3_NAMESPACE_END), (K3_LAUNCH, K3_COOP_LAUNCH),
+        )),
     )),
     "k6": ("table_grad_pos", (
         ("kernel", True, ()),
@@ -253,9 +264,9 @@ def _zeros_aside(n_rows, dev) -> dict:
 
 def k1_run(dev):
     """K1 on phase 2's render-shaped queries (4096 rays x 256 steps on the
-    128^3 shell): a function that launches a library's kernel, the launch
-    function's name and argument types, the plain version's result, and
-    what is timed beside the variants."""
+    128^3 shell): the inputs (one here), each a function that launches a
+    library's kernel and the plain version's result; the launch function's
+    name and argument types; and what is timed beside the variants."""
     from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops import occ_query as oq
 
@@ -281,9 +292,10 @@ def k3_run(dev):
     """K3 on phase 5's draws (2^20 into 2^21 cells), on the same draws
     sorted by id, and on ``sysrow``-shaped draws (a uniform half, and rows of
     128 ascending occupied ids of the shell at a fixed stride, as an update
-    draws them): for each, a function that launches a library's kernel into
-    buffers of its own (the place pass alone reads the buckets an earlier
-    call left there) and the plain version's result."""
+    draws them): for each, a function that launches a library's kernel on an
+    output filled with -1 once (the atomics take the max again on each call)
+    and the plain version's result; beside them, the wrapper (``torch.full``
+    and the kernel) on each input and the fill alone."""
     from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops import table_grad as tg
 
@@ -296,27 +308,23 @@ def k3_run(dev):
     pick = np.minimum(((np.arange(n // 256) + rng.random()) * (rows / (n // 256))).astype(np.int64), rows - 1)
     sysrow = np.concatenate([rng.integers(0, n_cells, n // 2), occupied[pick].reshape(-1)]).astype(np.int32)
     order = np.argsort(ids, kind="stable")
-    inputs = {}
+    inputs, aside = {}, {"torch.full of the output alone": lambda: torch.full((n_cells,), -1.0, device=dev)}
     for label, (i_np, v_np) in {
         "phase 5's draws": (ids, vals), "sorted": (ids[order], vals[order]), "sysrow-shaped": (sysrow, vals),
     }.items():
         i_t = torch.from_numpy(np.ascontiguousarray(i_np)).to(dev)
         v_t = torch.from_numpy(np.ascontiguousarray(v_np)).to(dev)
         out = torch.full((n_cells,), -1.0, device=dev)
-        bucket = torch.empty((n, 2), dtype=torch.int32, device=dev)
-        # Room for the variants' smallest windows (4096 cells) and chunks (2048 draws).
-        seg = torch.empty((n_cells // 4096 * -(-n // 2048), 2), dtype=torch.int32, device=dev)
 
-        def run(lib, i_t=i_t, v_t=v_t, out=out, bucket=bucket, seg=seg):
-            rc = lib.cell_max_launch(i_t.data_ptr(), v_t.data_ptr(), out.data_ptr(), bucket.data_ptr(),
-                                     seg.data_ptr(), n, n_cells, torch.cuda.current_stream().cuda_stream)
+        def run(lib, i_t=i_t, v_t=v_t, out=out):
+            rc = lib.cell_max_launch(i_t.data_ptr(), v_t.data_ptr(), out.data_ptr(), n, n_cells,
+                                     torch.cuda.current_stream().cuda_stream)
             _build.check(lib, rc, "cell_max_launch")
             return out
 
         inputs[label] = (run, tg.cell_max_plain(i_t, v_t, n_cells))
-    return inputs, "cell_max_launch", tg._cell_max_lib().cell_max_launch.argtypes, {
-        "torch.full of the output alone": lambda: torch.full((n_cells,), -1.0, device=dev),
-    }
+        aside[f"cell_max, the wrapper [{label}]"] = lambda i_t=i_t, v_t=v_t: tg.cell_max(i_t, v_t, n_cells)
+    return inputs, "cell_max_launch", tg._cell_max_lib().cell_max_launch.argtypes, aside
 
 
 def k2_run(dev):

@@ -4,28 +4,28 @@
 // (kernel body _cell_place_kernel): out = full(-1).at[ids].max(vals), the
 // occupancy grid's EMA max over the probed cells.  The TPU version sorts,
 // scans for run maxima and places (max + 1) with one-hot matmuls, which
-// rounds values near 1e-3 by up to ~6e-8.  Here the max is taken exactly on
-// the int32 bit patterns: non-negative floats order like their bits, and a
-// cell starts at the bits of -1.0f, which are negative as int32.  -0.0f
-// (bits INT_MIN) is taken as +0.0f.  Ids outside [0, n_cells) are skipped.
-// The plain PyTorch version (nerfacc_tpu_torch/ops/table_grad.py:
-// cell_max_plain) takes the same max of the same bits.
+// rounds values near 1e-3 by up to ~6e-8.  Here one pass of atomicMax on the
+// int32 bit patterns gives the exact maximum with no sort: non-negative
+// floats order like their bits, and the output starts at the bits of -1.0f,
+// which are negative as int32.  -0.0f (bits INT_MIN) is taken as +0.0f.  Ids
+// outside [0, n_cells) are skipped.  The plain PyTorch version
+// (nerfacc_tpu_torch/ops/table_grad.py:cell_max_plain) takes the same max of
+// the same bits.
 //
-// What bounds it: the L2's atomic rate, then latency.  At the training
-// shape (2^20 draws into 2^21 cells, 8 MB) the bytes are 16.8 MB, 0.0050 ms
-// at 3.35 TB/s.  PR 2's design, a -1 fill (torch.full, 0.0038 ms) and then
-// one atomicMax a draw into device memory, took 0.0177 ms, 0.0143 of it the
-// REDs alone: a warp's RED on 32 scattered ids is 32 L2 operations, about
-// 73 G a second, and 16-byte loads of four draws a thread do not change
-// that (kernel_variants.py k3).  So the atomics move to shared memory, as
-// the TPU kernel's windows (WC = 32768) keep them in VMEM:
-//   1. cell_bucket_kernel: a block takes kChunk draws, counts them by window
-//      of kWindow cells with shared atomics, and writes them back sorted by
-//      window (stable is not needed), with each window's offset and count;
-//   2. cell_place_kernel: a block owns one window, 64 KB of shared memory
-//      started at -1, places that window's draws from every chunk with
-//      shared atomicMax, and writes the window once with 16-byte stores, so
-//      the -1 fill costs no pass of its own.
+// What bounds it: the L2's atomic rate.  At the training shape (1,048,576
+// draws into 2,097,152 cells) the bytes are 8 B a draw and 4 B a cell, 16.8
+// MB, 0.0050 ms at 3.35 TB/s.  The wrapper's -1 fill (torch.full) takes
+// 0.0037 ms and this kernel 0.0142 ms on uniform and shell ids, about 27% of
+// the bound for the two, and 0.0094 ms on an update's rows of ascending
+// occupied ids, which share sectors (H100 80GB HBM3 at 700 W,
+// kernel_variants.py k3).  A warp's atomicMax on 32 scattered ids is 32 L2
+// operations.  Loading four draws a thread with 16-byte loads leaves the
+// scattered case as it is and slows the other (fewer lanes of a warp share a
+// sector).  Two other designs measured slower on an update's draws: the fill
+// and the atomics in one cooperative launch, across a grid-wide barrier; and
+// the TPU kernel's plan, draws bucketed by window of cells in one pass and
+// each window placed with shared-memory atomics in a second, whose passes
+// cost more than the atomics they save.
 
 #include <limits.h>
 #include <stdint.h>
@@ -34,222 +34,31 @@
 
 namespace {
 
-constexpr int kWindowShift = 14;
-constexpr int kWindow = 1 << kWindowShift;  // cells a window: 64 KB of shared memory
-constexpr int kChunk = 4096;                // draws a bucket block
-constexpr int kThreads = 512;
-constexpr int kPerThread = kChunk / kThreads;  // 8 draws, two quads
-// Pass 1's shared memory: kChunk staged pairs, then one count a window.
-// 32 KB + 192 KB of the 227 KB a block may have: 805,306,368 cells.
-constexpr int kMaxWindows = 49152;
-constexpr int kSegTile = 1024;  // segments a place block lists at once
-constexpr int kInFlight = 8;    // draws a place thread reads before it places them
-constexpr int kNegOneBits = static_cast<int>(0xbf800000u);  // -1.0f
-
-__device__ __forceinline__ int max_bits(float v) {  // -0.0f counts as +0.0f
-  const int b = __float_as_int(v);
-  return b == INT_MIN ? 0 : b;
-}
-
-// Exclusive prefix of v over the block; the block's total in *total.  The
-// caller syncs before it calls this again (warp_sums is reused).
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+__global__ void cell_max_kernel(const int32_t* __restrict__ ids,
+                                const float* __restrict__ vals,
+                                int* __restrict__ out_bits, int64_t n,
+                                int n_cells) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const int id = __ldg(ids + i);
+    if (id < 0 || id >= n_cells) continue;
+    int bits = __float_as_int(__ldg(vals + i));
+    if (bits == INT_MIN) bits = 0;  // -0.0f
+    atomicMax(out_bits + id, bits);
   }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < kThreads / 32 ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < kThreads / 32) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  *total = warp_sums[kThreads / 32 - 1];
-  return (warp ? warp_sums[warp - 1] : 0) + x - v;
-}
-
-// Pass 1: block b sorts draws [b * kChunk, (b + 1) * kChunk) by window in
-// shared memory and writes them to bucket[b * kChunk ...), window-major, as
-// (cell within the window, value bits); seg[w * nb + b] = (offset in the
-// block's chunk, count) of window w.
-__global__ void __launch_bounds__(kThreads)
-    cell_bucket_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
-                       int2* __restrict__ bucket, int2* __restrict__ seg, int n, int n_cells,
-                       int nw, int nb) {
-  extern __shared__ int2 stage[];  // kChunk pairs, then hist: nw counts
-  __shared__ int warp_sums[kThreads / 32];
-  int* hist = reinterpret_cast<int*>(stage + kChunk);
-  const int tid = threadIdx.x;
-  const int base = blockIdx.x * kChunk;
-  for (int w = tid; w < nw; w += kThreads) hist[w] = 0;
-  int id[kPerThread], bits[kPerThread], rank[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread / 4; ++j) {
-    const int i0 = base + 4 * (tid + j * kThreads);
-    if (i0 + 4 <= n) {
-      const int4 a = __ldg(reinterpret_cast<const int4*>(ids + i0));
-      const float4 v = __ldg(reinterpret_cast<const float4*>(vals + i0));
-      id[4 * j] = a.x, id[4 * j + 1] = a.y, id[4 * j + 2] = a.z, id[4 * j + 3] = a.w;
-      bits[4 * j] = max_bits(v.x), bits[4 * j + 1] = max_bits(v.y);
-      bits[4 * j + 2] = max_bits(v.z), bits[4 * j + 3] = max_bits(v.w);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bool in = i0 + k < n;
-        id[4 * j + k] = in ? __ldg(ids + i0 + k) : -1;
-        bits[4 * j + k] = in ? max_bits(__ldg(vals + i0 + k)) : 0;
-      }
-    }
-  }
-  __syncthreads();
-  // A draw's rank within its window: one shared atomic for the lanes of a
-  // warp that share a window (sorted draws would put a whole chunk on one
-  // counter).
-  const int lane = tid & 31;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const bool ok = id[k] >= 0 && id[k] < n_cells;
-    const int w = ok ? id[k] >> kWindowShift : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, w);
-    const int leader = __ffs(peers) - 1;
-    int first = 0;
-    if (ok && lane == leader) first = atomicAdd(hist + w, __popc(peers));
-    first = __shfl_sync(0xffffffffu, first, leader);
-    rank[k] = ok ? first + __popc(peers & ((1u << lane) - 1)) : -1;
-  }
-  __syncthreads();
-  const int per = (nw + kThreads - 1) / kThreads;
-  const int w0 = min(tid * per, nw), w1 = min(w0 + per, nw);
-  int local = 0;
-  for (int w = w0; w < w1; ++w) local += hist[w];
-  int total;
-  int run = block_exclusive_scan(local, warp_sums, &total);
-  for (int w = w0; w < w1; ++w) {
-    const int c = hist[w];
-    seg[static_cast<int64_t>(w) * nb + blockIdx.x] = make_int2(run, c);
-    hist[w] = run;
-    run += c;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k)
-    if (rank[k] >= 0)
-      stage[hist[id[k] >> kWindowShift] + rank[k]] = make_int2(id[k] & (kWindow - 1), bits[k]);
-  __syncthreads();
-  for (int i = tid; i < total; i += kThreads) bucket[base + i] = stage[i];
-}
-
-// Pass 2: block w owns cells [w * kWindow, (w + 1) * kWindow): it starts
-// them at -1 in shared memory, places the window's draws of every chunk with
-// shared atomicMax, and writes the window once.  The window's draws lie in nb
-// segments, one a chunk, of any sizes (sorted draws fill a few); the block
-// takes them kSegTile segments at a time as one list, thread t its entries t,
-// t + kThreads, ..., each found by a binary search of the segments' starts.
-__global__ void __launch_bounds__(kThreads)
-    cell_place_kernel(const int2* __restrict__ bucket, const int2* __restrict__ seg,
-                      float* __restrict__ out, int n_cells, int nb) {
-  extern __shared__ int4 window4[];
-  __shared__ int start[kSegTile];   // of each segment in the tile's list
-  __shared__ int offset[kSegTile];  // of each segment in its chunk's bucket
-  __shared__ int warp_sums[kThreads / 32];
-  int* window = reinterpret_cast<int*>(window4);
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kWindow / 4; i += kThreads)
-    window4[i] = make_int4(kNegOneBits, kNegOneBits, kNegOneBits, kNegOneBits);
-  for (int t0 = 0; t0 < nb; t0 += kSegTile) {
-    const int tn = min(kSegTile, nb - t0);
-    __syncthreads();  // the last tile's lists are read
-    int2 r[kSegTile / kThreads];
-    int local = 0;
-#pragma unroll
-    for (int u = 0; u < kSegTile / kThreads; ++u) {
-      const int sg = tid * (kSegTile / kThreads) + u;
-      r[u] = sg < tn ? __ldg(seg + static_cast<int64_t>(w) * nb + t0 + sg) : make_int2(0, 0);
-      local += r[u].y;
-    }
-    int total;
-    int run = block_exclusive_scan(local, warp_sums, &total);
-#pragma unroll
-    for (int u = 0; u < kSegTile / kThreads; ++u) {
-      const int sg = tid * (kSegTile / kThreads) + u;
-      start[sg] = run;
-      offset[sg] = r[u].x;
-      run += r[u].y;
-    }
-    __syncthreads();
-    for (int i0 = tid; i0 < total; i0 += kThreads * kInFlight) {
-      int2 e[kInFlight];
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < total) {
-          int lo = 0, hi = tn;  // the last segment that starts at or before i
-          while (hi - lo > 1) {
-            const int mid = (lo + hi) >> 1;
-            if (start[mid] <= i) lo = mid; else hi = mid;
-          }
-          e[u] = __ldg(bucket + static_cast<int64_t>(t0 + lo) * kChunk + offset[lo] + (i - start[lo]));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u)
-        if (i0 + u * kThreads < total) atomicMax(window + e[u].x, e[u].y);
-    }
-  }
-  __syncthreads();
-  const int lo = w * kWindow;
-  const int len = min(kWindow, n_cells - lo);
-  if (len == kWindow) {
-    for (int i = tid; i < kWindow / 4; i += kThreads)
-      reinterpret_cast<int4*>(out + lo)[i] = window4[i];
-  } else {
-    for (int i = tid; i < len; i += kThreads) out[lo + i] = __int_as_float(window[i]);
-  }
-}
-
-// Dynamic shared memory above 48 KB must be asked for: raise each kernel's
-// limit, once per device, to what this launch needs.
-int raise_smem_limit(const void* kernel, int bytes, int (&done)[64]) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < 64 && done[dev] >= bytes) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess && dev >= 0 && dev < 64) done[dev] = bytes;
-  return static_cast<int>(e);
 }
 
 }  // namespace
 
-// ids (n int32, n < 2^30) and vals (n float32), 16-byte aligned; out:
-// n_cells float32, 16-byte aligned, at most kMaxWindows * kWindow; bucket:
-// scratch for n (cell, bits) int32 pairs; seg: scratch for
-// ceil(n_cells / kWindow) x ceil(n / kChunk) (offset, count) int32 pairs.
-extern "C" int cell_max_launch(const int32_t* ids, const float* vals, float* out, void* bucket,
-                               void* seg, long long n, int n_cells, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nw = (n_cells + kWindow - 1) / kWindow;
-  const int nb = static_cast<int>((n + kChunk - 1) / kChunk);
-  if (nw > kMaxWindows || n >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  const int bucket_smem = kChunk * 8 + nw * 4;
-  static int bucket_done[64] = {}, place_done[64] = {};
-  int rc = raise_smem_limit(reinterpret_cast<const void*>(cell_bucket_kernel), bucket_smem, bucket_done);
-  if (rc == 0) rc = raise_smem_limit(reinterpret_cast<const void*>(cell_place_kernel), kWindow * 4, place_done);
-  if (rc != 0) return rc;
-  int2* b = static_cast<int2*>(bucket);
-  int2* sg = static_cast<int2*>(seg);
-  if (nb > 0)
-    cell_bucket_kernel<<<nb, kThreads, bucket_smem, s>>>(ids, vals, b, sg, static_cast<int>(n), n_cells,
-                                                          nw, nb);
-  cell_place_kernel<<<nw, kThreads, kWindow * 4, s>>>(b, sg, out, n_cells, nb);
+extern "C" int cell_max_launch(const int32_t* ids, const float* vals,
+                               float* out, long long n, int n_cells,
+                               void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < (1LL << 30) ? want : (1LL << 30));
+  cell_max_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ids, vals, reinterpret_cast<int*>(out), n, n_cells);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,7 +29,9 @@
 // its grid-word reads (4, or 8 with mip_pad = 1) before it uses any, and
 // stores the four result bytes as one 32-bit word; the grid is one wave of
 // resident blocks with a grid-stride loop, so no partial wave trails.  The
-// 128^3 level (256 KB of bits) stays in L2, read through __ldg.
+// 128^3 level (256 KB of bits) stays in L2, read through __ldg.  Measured on
+// an H100 80GB HBM3 at 700 W (kernel_variants.py k1): 0.0063 ms, 65% of the
+// bound; an empty launch takes 0.0016 ms of it and the grid reads 0.0005.
 
 #include <stdint.h>
 

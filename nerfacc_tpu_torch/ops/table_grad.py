@@ -36,8 +36,7 @@ Port of ``nerfacc_tpu/ops/table_grad.py``:
   (replaces ``table_grad_factors_sorted_pos``), which rebuilds every weight
   from the sample positions.
 - K3, :func:`cell_max` (replaces ``cell_max_sorted``): the exact
-  ``full(-1).at[ids].max(vals)`` for non-negative ``vals``, with the
-  atomics in shared memory, window by window of cells.
+  ``full(-1).at[ids].max(vals)`` for non-negative ``vals``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (K2
 ``csrc/table_grad_u10.cu``, K4 ``csrc/table_grad.cu``, K5
@@ -764,17 +763,8 @@ def cell_max_plain(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
 
 def _cell_max_lib():
     return _lib("cell_max", (
-        ("cell_max_launch", (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int, _P)),
+        ("cell_max_launch", (_P,) * 3 + (ctypes.c_longlong, ctypes.c_int, _P)),
     ))
-
-
-# K3 places the draws window by window: a block owns K3_WINDOW cells in
-# shared memory, after a pass that sorts each K3_CHUNK draws by window and
-# holds a count a window in shared memory too (``csrc/cell_max.cu``:
-# kWindow, kChunk, kMaxWindows).
-K3_WINDOW = 1 << 14
-K3_CHUNK = 4096
-_K3_MAX_CELLS = 49152 * K3_WINDOW
 
 
 def cell_max(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
@@ -782,11 +772,7 @@ def cell_max(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
     ``vals`` whose ``ids`` name each cell and ``-1`` where none does, equal
     to ``full(-1).scatter_reduce(ids, vals, "amax")``.  ``ids`` int32 in
     ``[0, n_cells)`` (the kernel skips others).  A CPU tensor takes
-    :func:`cell_max_plain`; a CUDA tensor launches the kernel (a pass that
-    buckets the draws by window of :data:`K3_WINDOW` cells, then one that
-    places each window in shared memory) or raises.  The kernel reads
-    ``ids`` and ``vals`` 16 bytes at a time, so they must be 16-byte
-    aligned, as fresh tensors are."""
+    :func:`cell_max_plain`; a CUDA tensor launches the kernel or raises."""
     if vals.device.type == "cpu":
         return cell_max_plain(ids, vals, n_cells)
     if vals.device.type != "cuda":
@@ -797,24 +783,14 @@ def cell_max(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
         raise ValueError("cell_max: vals must be contiguous float32 like ids")
     if ids.device != vals.device:
         raise ValueError("cell_max: all tensors must be on one device")
-    for what, t in (("ids", ids), ("vals", vals)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"cell_max: {what} must be 16-byte aligned (the kernel reads it 16 bytes at a time)")
-    if n_cells <= 0 or n_cells > _K3_MAX_CELLS:
-        raise ValueError(f"cell_max: n_cells={n_cells} out of range (1 to {_K3_MAX_CELLS})")
-    n = ids.numel()
-    if n >= 1 << 30:
-        raise ValueError(f"cell_max: {n} draws; the kernel takes fewer than 2^30")
+    if n_cells <= 0 or n_cells >= 1 << 31:
+        raise ValueError(f"cell_max: n_cells={n_cells} out of range")
     lib = _cell_max_lib()
-    dev = vals.device
-    out = torch.empty((n_cells,), dtype=torch.float32, device=dev)
-    bucket = torch.empty((n, 2), dtype=torch.int32, device=dev)
-    seg = torch.empty((-(-n_cells // K3_WINDOW) * -(-n // K3_CHUNK), 2), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.full((n_cells,), -1.0, dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
         rc = lib.cell_max_launch(
-            ids.data_ptr(), vals.data_ptr(), out.data_ptr(), bucket.data_ptr(), seg.data_ptr(), n, n_cells,
-            stream,
+            ids.data_ptr(), vals.data_ptr(), out.data_ptr(), ids.numel(), n_cells, stream
         )
     _build.check(lib, rc, "cell_max_launch")
     cell_max.launches += 1
