@@ -40,18 +40,17 @@ K2 (``csrc/table_grad_u10.cu``; 2^21 sample-levels over 4 x 2^15 rows):
   random gather costs (the result is wrong).
 
 K3 (``csrc/cell_max.cu``; 2^20 draws into 2^21 cells, each variant on phase
-5's draws, on the same draws sorted by id and on ``sysrow``-shaped draws;
-the wrapper, ``torch.full`` of the output and ``scatter_reduce_`` are timed
-beside them):
+5's draws, on the same draws sorted by id and on ``sysrow``-shaped draws,
+into an output filled with -1 beforehand; the wrapper, which fills it with
+``torch.full`` first, and the fill alone are timed beside them):
 
-- ``kernel``: the source as it is: the -1 fill, then the atomics in one
-  wave of blocks, launched to overlap the fill's tail.
-- ``launch only``: the fill, and atomics' blocks that return at once.
-- ``not overlapped``: the atomics launched after the fill has ended.
-- ``a block per 256 draws``: the atomics' grid not cut to one wave.
-- ``the atomics alone, a block per 256 draws``: no fill (the output keeps
-  the -1 and the maxima of the calls before), the grid not cut, not
-  overlapped: with ``torch.full`` first, the design before this one.
+- ``kernel``: the source as it is, one ``atomicMax`` a draw into device
+  memory.
+- ``launch only``: every block returns at once.
+- ``four draws a thread``: 16-byte loads of the ids and values.
+- ``fill and atomics in one cooperative launch``: the -1 fill and the
+  atomics in one kernel, across a grid-wide barrier (so it needs no
+  ``torch.full``).
 
 K6 (``csrc/table_grad_pos.cu``; 2^19 samples x 8 fetches over 2 x 2^16
 rows):
@@ -110,14 +109,64 @@ K1_COORDS = (
     "    const float4 z4 = __ldg(reinterpret_cast<const float4*>(pz) + q);\n"
 )
 K1_BLOCKS = "  const int blocks = static_cast<int>(want < 1 ? 1 : (want < wave ? want : wave));\n"
-K3_FILL_LAUNCH = (
-    "  fill_kernel<<<static_cast<int>(fill_want < 1 ? 1 : (fill_want < wave ? fill_want : wave)), kThreads, 0, s>>>(\n"
-    "      out, n_cells);\n"
+K3_LAUNCH = (
+    "  cell_max_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+    "      ids, vals, reinterpret_cast<int*>(out), n, n_cells);\n"
 )
-K3_GRID = "    cfg.gridDim = dim3(static_cast<unsigned>(want < wave ? want : wave));\n"
-K3_UNCUT_GRID = "    cfg.gridDim = dim3(static_cast<unsigned>(want));\n"
-K3_OVERLAP = "    cfg.numAttrs = 1;\n"
-K3_NO_OVERLAP = "    cfg.numAttrs = 0;\n"
+K3_NAMESPACE_END = "}  // namespace\n"
+K3_FOUR = """__global__ void four_kernel(const int4* __restrict__ ids, const float4* __restrict__ vals,
+                            int* __restrict__ out_bits, int64_t quads, int n_cells) {
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; q < quads;
+       q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int4 a = __ldg(ids + q);
+    const float4 v = __ldg(vals + q);
+    const int id[4] = {a.x, a.y, a.z, a.w};
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (id[k] < 0 || id[k] >= n_cells) continue;
+      int bits = __float_as_int(x[k]);
+      if (bits == INT_MIN) bits = 0;
+      atomicMax(out_bits + id[k], bits);
+    }
+  }
+}
+
+"""
+K3_FOUR_LAUNCH = (
+    "  four_kernel<<<static_cast<int>((n / 4 + threads - 1) / threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
+    "      reinterpret_cast<const int4*>(ids), reinterpret_cast<const float4*>(vals), reinterpret_cast<int*>(out), n / 4,\n"
+    "      n_cells);\n"
+)
+# Candidate (a): the -1 fill and the atomics in one cooperative launch,
+# across a grid-wide barrier.
+K3_COOP = """__global__ void fill_and_place_kernel(const int32_t* __restrict__ ids, const float* __restrict__ vals,
+                                      int* __restrict__ out_bits, int64_t n, int n_cells) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int m = __float_as_int(-1.0f);
+  for (int64_t i = first; i < n_cells / 4; i += stride) reinterpret_cast<int4*>(out_bits)[i] = make_int4(m, m, m, m);
+  for (int64_t i = n_cells / 4 * 4 + first; i < n_cells; i += stride) out_bits[i] = m;
+  cooperative_groups::this_grid().sync();
+  for (int64_t i = first; i < n; i += stride) {
+    const int id = __ldg(ids + i);
+    if (id < 0 || id >= n_cells) continue;
+    int bits = __float_as_int(__ldg(vals + i));
+    if (bits == INT_MIN) bits = 0;
+    atomicMax(out_bits + id, bits);
+  }
+}
+
+"""
+K3_COOP_LAUNCH = """  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fill_and_place_kernel, threads, 0);
+  int* out_bits = reinterpret_cast<int*>(out);
+  void* args[] = {&ids, &vals, &out_bits, &n, &n_cells};
+  cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fill_and_place_kernel), sms * per_sm, threads, args, 0,
+                              static_cast<cudaStream_t>(stream));
+"""
 
 
 # kernel -> (source name, ((variant name, keeps the function, substitutions), ...))
@@ -152,12 +201,12 @@ VARIANTS = {
     )),
     "k3": ("cell_max", (
         ("kernel", True, ()),
-        ("launch only", False, (('  asm volatile("griddepcontrol.wait;" ::: "memory");\n',
-                                 '  if (n > 0) return;\n  asm volatile("griddepcontrol.wait;" ::: "memory");\n'),)),
-        ("not overlapped", True, ((K3_OVERLAP, K3_NO_OVERLAP),)),
-        ("a block per 256 draws", True, ((K3_GRID, K3_UNCUT_GRID),)),
-        ("the atomics alone, a block per 256 draws", True, (
-            (K3_FILL_LAUNCH, ""), (K3_GRID, K3_UNCUT_GRID), (K3_OVERLAP, K3_NO_OVERLAP),
+        ("launch only", False, (("  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;\n",
+                                 "  if (n > 0) return;\n  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;\n"),)),
+        ("four draws a thread", True, ((K3_NAMESPACE_END, K3_FOUR + K3_NAMESPACE_END), (K3_LAUNCH, K3_FOUR_LAUNCH))),
+        ("fill and atomics in one cooperative launch", True, (
+            ('#include "common.cuh"\n', '#include <cooperative_groups.h>\n\n#include "common.cuh"\n'),
+            (K3_NAMESPACE_END, K3_COOP + K3_NAMESPACE_END), (K3_LAUNCH, K3_COOP_LAUNCH),
         )),
     )),
     "k6": ("table_grad_pos", (
@@ -245,8 +294,8 @@ def k3_run(dev):
     128 ascending occupied ids of the shell at a fixed stride, as an update
     draws them): for each, a function that launches a library's kernel on an
     output filled with -1 once (the atomics take the max again on each call)
-    and the plain version's result; beside them, the wrapper on each input,
-    ``torch.full`` of the output alone and ``scatter_reduce_``."""
+    and the plain version's result; beside them, the wrapper (``torch.full``
+    and the kernel) on each input and the fill alone."""
     from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops import table_grad as tg
 
@@ -275,8 +324,6 @@ def k3_run(dev):
 
         inputs[label] = (run, tg.cell_max_plain(i_t, v_t, n_cells))
         aside[f"cell_max, the wrapper [{label}]"] = lambda i_t=i_t, v_t=v_t: tg.cell_max(i_t, v_t, n_cells)
-        aside[f"scatter_reduce_ [{label}]"] = lambda i_t=i_t, v_t=v_t: torch.full(
-            (n_cells,), -1.0, device=dev).scatter_reduce_(0, i_t.long(), v_t, "amax")
     return inputs, "cell_max_launch", tg._cell_max_lib().cell_max_launch.argtypes, aside
 
 

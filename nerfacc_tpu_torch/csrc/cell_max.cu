@@ -34,26 +34,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// The -1 fill, one wave of blocks with 16-byte stores.  Each block, its
-// stores issued, lets the atomics' grid start launching.
-__global__ void __launch_bounds__(kThreads) fill_kernel(float* __restrict__ out, int64_t n_cells) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  for (int64_t q = first; q < n_cells / 4; q += stride)
-    reinterpret_cast<float4*>(out)[q] = make_float4(-1.f, -1.f, -1.f, -1.f);
-  for (int64_t i = n_cells / 4 * 4 + first; i < n_cells; i += stride) out[i] = -1.f;
-  asm volatile("griddepcontrol.launch_dependents;");
-}
-
-__global__ void __launch_bounds__(kThreads)
-    cell_max_kernel(const int32_t* __restrict__ ids, const float* __restrict__ vals,
-                    int* __restrict__ out_bits, int64_t n, int n_cells) {
-  // Launched while the fill finishes: wait until its writes are visible.
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+__global__ void cell_max_kernel(const int32_t* __restrict__ ids,
+                                const float* __restrict__ vals,
+                                int* __restrict__ out_bits, int64_t n,
+                                int n_cells) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
     const int id = __ldg(ids + i);
     if (id < 0 || id >= n_cells) continue;
     int bits = __float_as_int(__ldg(vals + i));
@@ -62,48 +49,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Blocks of kThreads that fit on the card at once (both kernels are small
-// enough for the most), found once per device.
-int resident_blocks() {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cell_max_kernel, kThreads, 0);
-    cached[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
-  return cached[dev];
-}
-
 }  // namespace
 
-// ids (n int32) and vals (n float32); out: n_cells float32, 16-byte aligned,
-// filled here.
 extern "C" int cell_max_launch(const int32_t* ids, const float* vals,
                                float* out, long long n, int n_cells,
                                void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long wave = resident_blocks();
-  const long long fill_want = (n_cells / 4 + kThreads - 1) / kThreads;
-  fill_kernel<<<static_cast<int>(fill_want < 1 ? 1 : (fill_want < wave ? fill_want : wave)), kThreads, 0, s>>>(
-      out, n_cells);
-  if (n > 0) {
-    const long long want = (n + kThreads - 1) / kThreads;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(want < wave ? want : wave));
-    cfg.blockDim = dim3(kThreads);
-    cfg.stream = s;
-    cudaLaunchAttribute overlap;  // a programmatic dependent launch
-    overlap.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    overlap.val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = &overlap;
-    cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, cell_max_kernel, ids, vals, reinterpret_cast<int*>(out),
-                                             static_cast<int64_t>(n), n_cells);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < (1LL << 30) ? want : (1LL << 30));
+  cell_max_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ids, vals, reinterpret_cast<int*>(out), n, n_cells);
   return static_cast<int>(cudaGetLastError());
 }

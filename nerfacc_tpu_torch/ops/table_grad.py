@@ -786,7 +786,7 @@ def cell_max(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
     if n_cells <= 0 or n_cells >= 1 << 31:
         raise ValueError(f"cell_max: n_cells={n_cells} out of range")
     lib = _cell_max_lib()
-    out = torch.empty((n_cells,), dtype=torch.float32, device=vals.device)  # the kernel fills it
+    out = torch.full((n_cells,), -1.0, dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         rc = lib.cell_max_launch(

@@ -109,4 +109,4 @@ def test_k1_variant_substitutions_match_the_kernel_source(monkeypatch):
 
 
 def test_k3_variant_substitutions_match_the_kernel_source(monkeypatch):
-    _variants_match_their_source(monkeypatch, "k3", 5)
+    _variants_match_their_source(monkeypatch, "k3", 4)
