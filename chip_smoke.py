@@ -8,8 +8,8 @@ Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
-   what ``ptxas -v`` says of K1, K2, K3 and K6 (registers, shared memory,
-   spills).
+   what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
+   memory, spills).
 2. kernel K1 (occupancy query) against its plain PyTorch version on the
    card, for exact equality, at the render shape and on adversarial points;
    timings with CUDA events.
@@ -49,6 +49,12 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
    ``factor_pack="w8"`` (K4-w8, bf16 and float32) and ``"w3"`` (K4-w3,
    bf16): the kept samples, the loss, every gradient and the parameters
    after Adam must agree, and each route must launch its kernel.
+9. train, float32: phase 6's step at ``compute_dtype=None``, as
+   ``bench.py`` runs it with ``BENCH_DTYPE=f32`` and as the JAX package's
+   training example runs by default (``--dtype f32``): the fused encoder's
+   table gradient then launches K4-w3 in float32 every step.  The same
+   counts and prints as phase 6, with the launches of K1, K4-w3 and K3, and
+   a profile window; needs no other phase.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -626,10 +632,12 @@ def k3_inputs(rng) -> tuple:
     return ids, vals
 
 
-def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_inputs):
-    """Phases 6 and 7: bench.py's throughput phase on the port with the
-    field ``field_cfg``, whose table gradient launches ``grad_kernel``
-    (``grad_label`` in the prints); then, if ``check_inputs``, K1 against
+def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_inputs,
+                     compute_dtype=torch.bfloat16):
+    """Phases 6, 7 and 9: bench.py's throughput phase on the port with the
+    field ``field_cfg`` at ``compute_dtype`` (None: float32), whose table
+    gradient launches ``grad_kernel`` (``grad_label`` in the prints); then,
+    if ``check_inputs``, K1 against
     its plain version on one step's queries and K3 on one update's draws,
     each timed.  Returns the field (for phase 8), the launches of K1, the
     table-gradient kernel and K3 on the train path, and K1's largest
@@ -642,9 +650,10 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
     est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1, skip_factor=2)
     state = est.set_binaries(est.init(dev), torch.from_numpy(shell_binaries(GRID_RES)))
     field = NGPRadianceField(
-        aabb=AABB, compute_dtype=torch.bfloat16, device=dev,
+        aabb=AABB, compute_dtype=compute_dtype, device=dev,
         generator=torch.Generator().manual_seed(0), **field_cfg,
     )
+    what = f"{field_cfg.get('encoder_type', 'fused')}, {'bf16' if compute_dtype else 'float32'}"
     opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
     rng = np.random.default_rng(0)  # bench.py:86,118-122
     d = rng.normal(size=(TRAIN_RAYS, 3)).astype(np.float32)
@@ -690,7 +699,7 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
     sps = total / (step_time + TRAIN_ITERS / 16.0 * update_time)
     first, last = float(losses[0]), float(losses[-1])
     print(
-        f"train ({field_cfg.get('encoder_type', 'fused')}): {sps:.1f} samples/s ({total} samples in "
+        f"train ({what}): {sps:.1f} samples/s ({total} samples in "
         f"{TRAIN_ITERS} steps), step {step_time / TRAIN_ITERS * 1e3:.2f} ms, occupancy update "
         f"{update_time * 1e3:.2f} ms, launches "
         + " ".join(f"{k} {v}" for k, v in launches.items())
@@ -718,7 +727,7 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
         steps_and_update,
         ("traverse_and_compact", "field_forward", "gather_combine", "rendering", "backward",
          "table_grad", "optimizer", "occ_update"),
-        f"train {field_cfg.get('encoder_type', 'fused')} (3 steps and 1 update)", profile_name,
+        f"train {what} (3 steps and 1 update)", profile_name,
     )
     return field, launches, k1_err
 
@@ -1050,7 +1059,7 @@ def serve(dev, est, state, crop: bool) -> None:
         fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -1080,7 +1089,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     from nerfacc_tpu_torch.ops import _build
-    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10
+    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10, table_grad_w3
 
     # Full float32 products: TF32 would keep about three decimal digits.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1098,7 +1107,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {_build.kernel_names()}", flush=True)
-    for label, name in (("K1", "occ_query"), ("K2", "table_grad_u10"), ("K3", "cell_max"), ("K6", "table_grad_pos")):
+    for label, name in (("K1", "occ_query"), ("K2", "table_grad_u10"), ("K3", "cell_max"), ("K4", "table_grad"),
+                        ("K6", "table_grad_pos")):
         for line in _build.ptxas_report(name).splitlines():
             if any(word in line for word in ("Compiling entry", "Used", "spill")):
                 print(f"{label} ptxas: {line.replace('ptxas info    :', '').strip()}", flush=True)
@@ -1132,10 +1142,18 @@ def main(argv=None) -> None:
     if 8 in run:
         route_launches = train_card_vs_cpu(dev, weights(trained), weights(grouped))
 
+    # ---- 9. train at full width in float32 (K4-w3) ---------------------------
+    if 9 in run:
+        _, f32_launches, _ = train_full_width(
+            dev, TRAIN_FIELD_CFG, table_grad_w3, "K4-w3", "profile_train_f32.txt", check_inputs=False,
+            compute_dtype=None,
+        )
+
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
         # K1's launches here are the fused train path's (phase 6); the serve
-        # path's are printed in phase 3.  K2, K3: phase 6; K6: phase 7; K4 and
+        # path's are printed in phase 3.  K2, K3: phase 6; K6: phase 7; K4-w3
+        # in float32: the float32 train path (phase 9); K4's other modes and
         # K5: their routes' card steps in phase 8.
         src = "nerfacc_tpu_torch/csrc/"
         tg_py = "nerfacc_tpu/ops/table_grad.py:"
@@ -1148,7 +1166,7 @@ def main(argv=None) -> None:
                        kt[key]["plain_ms"], kt[key]["bytes"], kt[key]["ops"], kt[key].get("library_ms"))
             for name, key, file, line, launches in (
                 ("table_grad_u10", "K2", "table_grad_u10.cu", "749", train_launches["K2"]),
-                ("table_grad_w3", "K4-w3", "table_grad.cu", "572", route_launches["float32"]),
+                ("table_grad_w3", "K4-w3", "table_grad.cu", "572", f32_launches["K4-w3"]),
                 ("table_grad_w3_bf16", "K4-w3-bf16", "table_grad.cu", "572", route_launches["w3 bf16"]),
                 ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),
                 ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),

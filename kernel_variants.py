@@ -1,4 +1,4 @@
-"""Where the time of kernels K1, K2, K3 and K6 goes on one NVIDIA GPU.
+"""Where the time of kernels K1, K2, K3, K4 and K6 goes on one NVIDIA GPU.
 
     python3 kernel_variants.py            # every kernel
     python3 kernel_variants.py k1 k3      # some of them
@@ -7,8 +7,8 @@ Builds variants of a kernel's source, each with one part changed by a text
 substitution, into ``build/kernel_variants/`` and times each on
 ``chip_smoke.py``'s inputs (phase 2's for K1, phase 5's for the others),
 three rounds in turn, with ``chip_smoke.time_ms``.  Every time includes what
-the wrapper launches: for K2 and K6 the ``torch.zeros`` of the output and
-the kernel (for K6 also the positions' pre-pass).  The variants that keep
+the wrapper launches: for K2, K4 and K6 the ``torch.zeros`` of the output
+and the kernel (for K6 also the positions' pre-pass).  The variants that keep
 the function are held against the plain version.
 
 K1 (``csrc/occ_query.cu``; 4096 x 256 render-shaped queries on the 128^3
@@ -52,6 +52,16 @@ into an output filled with -1 beforehand; the wrapper, which fills it with
   atomics in one kernel, across a grid-wide barrier (so it needs no
   ``torch.full``).
 
+K4 (``csrc/table_grad.cu``; K2's inputs in K4's four modes, w3 and w8 in
+float32 and bf16, each variant on each mode):
+
+- ``kernel``, ``staging only``, ``no run fast path``: as for K2.
+- ``float32 tiles of 256``: 256-sample float32 tiles of 64 threads, four
+  blocks an SM (about the same shared memory; the tile check dropped); the
+  bf16 modes as they are.
+- ``float32 at six blocks an SM``, ``bf16 at twelve blocks an SM``: the
+  shared memory split for that many resident blocks of one type.
+
 K6 (``csrc/table_grad_pos.cu``; 2^19 samples x 8 fetches over 2 x 2^16
 rows):
 
@@ -83,6 +93,18 @@ K2_STAGE_ONLY = K2_WALK + (
     "  }\n"
     "  return;\n"
 )
+K4_STAGE_ONLY = K2_WALK + (
+    "  if ((tid & 31) == 0 && (tid >> 5) * kWarpSamples < count) {\n"
+    "    const int q0 = (tid >> 5) * kWarpSamples / 4;\n"
+    "    out[blockIdx.x * 4 + (tid >> 5)] = static_cast<float>(st.key[q0].x) +\n"
+    "        reinterpret_cast<const float*>(&st.w[q0][0])[0] + reinterpret_cast<const float*>(&st.d[q0][0])[0];\n"
+    "  }\n"
+    "  return;\n"
+)
+K4_TILE_CHECK = "  if (tile != Stage::kSamples ||"
+K4_F32_TILE = "constexpr int kTileF32 = 128;"
+K4_F32_BLOCKS = "constexpr int kBlocksPerSmF32 = 8;"
+K4_BF16_BLOCKS = "constexpr int kBlocksPerSmBf16 = 8;"
 K6_WALK = "  // ---- 2. the walk: warp w sums pairs [sb, se) of the tile ----------------\n"
 K6_STAGE_ONLY = K6_WALK + (
     "  if ((tid & 31) == 0 && (tid >> 5) * kWarpPairs < count) {\n"
@@ -209,6 +231,18 @@ VARIANTS = {
             (K3_NAMESPACE_END, K3_COOP + K3_NAMESPACE_END), (K3_LAUNCH, K3_COOP_LAUNCH),
         )),
     )),
+    "k4": ("table_grad", (
+        ("kernel", True, ()),
+        ("staging only", False, ((K2_WALK, K4_STAGE_ONLY),)),
+        ("float32 tiles of 256", True, (
+            (K4_F32_TILE, "constexpr int kTileF32 = 256;"),
+            (K4_F32_BLOCKS, "constexpr int kBlocksPerSmF32 = 4;"),
+            (K4_TILE_CHECK, "  if (false ||"),
+        )),
+        ("float32 at six blocks an SM", True, ((K4_F32_BLOCKS, "constexpr int kBlocksPerSmF32 = 6;"),)),
+        ("bf16 at twelve blocks an SM", True, ((K4_BF16_BLOCKS, "constexpr int kBlocksPerSmBf16 = 12;"),)),
+        ("no run fast path", True, (("    if (k4.w == cur && 4 * qd + 4 <= se) {", "    if (false) {"),)),
+    )),
     "k6": ("table_grad_pos", (
         ("kernel", True, ()),
         ("staging only", False, ((K6_WALK, K6_STAGE_ONLY),)),
@@ -265,8 +299,8 @@ def _zeros_aside(n_rows, dev) -> dict:
 def k1_run(dev):
     """K1 on phase 2's render-shaped queries (4096 rays x 256 steps on the
     128^3 shell): the inputs (one here), each a function that launches a
-    library's kernel and the plain version's result; the launch function's
-    name and argument types; and what is timed beside the variants."""
+    library's kernel and the plain version's result; the launch functions'
+    argument types by name; and what is timed beside the variants."""
     from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops import occ_query as oq
 
@@ -283,7 +317,7 @@ def k1_run(dev):
         return out
 
     want = oq.occupancy_query_plain(packed, base, px, py, pz, rz=cs.GRID_RES)
-    return {"": (run, want)}, "occ_query_launch", oq._launcher()[1].argtypes, {
+    return {"": (run, want)}, {"occ_query_launch": oq._launcher()[1].argtypes}, {
         "the plain version": lambda: oq.occupancy_query_plain(packed, base, px, py, pz, rz=cs.GRID_RES),
     }
 
@@ -324,7 +358,7 @@ def k3_run(dev):
 
         inputs[label] = (run, tg.cell_max_plain(i_t, v_t, n_cells))
         aside[f"cell_max, the wrapper [{label}]"] = lambda i_t=i_t, v_t=v_t: tg.cell_max(i_t, v_t, n_cells)
-    return inputs, "cell_max_launch", tg._cell_max_lib().cell_max_launch.argtypes, aside
+    return inputs, {"cell_max_launch": tg._cell_max_lib().cell_max_launch.argtypes}, aside
 
 
 def k2_run(dev):
@@ -341,7 +375,36 @@ def k2_run(dev):
 
     argtypes = tg._table_grad_u10_lib().table_grad_u10_launch.argtypes
     want = tg.table_grad_u10_plain(sorted_idx, perm, wq, dout, n_rows)
-    return {"": (run, want)}, "table_grad_u10_launch", argtypes, _zeros_aside(n_rows, dev)
+    return {"": (run, want)}, {"table_grad_u10_launch": argtypes}, _zeros_aside(n_rows, dev)
+
+
+def k4_run(dev):
+    """K4 on phase 5's inputs in its four modes (w3 and w8, float32 and
+    bf16), each with the output's zeroing."""
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    u = cs.shell_points(np.random.default_rng(1), cs.TRAIN_CAPACITY, dev)
+    _, sorted_idx, perm, w3, dout, n_rows = cs.fused_inputs(u, np.random.default_rng(2), dev)
+    w8 = tg.corner_weights(*w3).contiguous()
+    inputs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        d, bf = dout.to(dtype), int(dtype == torch.bfloat16)
+        w3_t, w8_t = [w.to(dtype) for w in w3], w8.to(dtype)
+        label = "float32" if dtype == torch.float32 else "bf16"
+
+        def run_w3(lib, w3_t=w3_t, d=d, bf=bf):
+            return tg._launch(lib, "table_grad_w3_launch", (sorted_idx, perm, *w3_t, d), n_rows, bf,
+                              span=tg.K4_TILE[d.dtype])
+
+        def run_w8(lib, w8_t=w8_t, d=d, bf=bf):
+            return tg._launch(lib, "table_grad_w8_launch", (sorted_idx, perm, w8_t, d), n_rows, bf,
+                              span=tg.K4_TILE[d.dtype])
+
+        inputs[f"w3 {label}"] = (run_w3, tg.table_grad_w3_plain(sorted_idx, perm, *w3_t, d, n_rows))
+        inputs[f"w8 {label}"] = (run_w8, tg.table_grad_w8_plain(sorted_idx, perm, w8_t, d, n_rows))
+    lib = tg._table_grad_lib()
+    signatures = {name: getattr(lib, name).argtypes for name in ("table_grad_w3_launch", "table_grad_w8_launch")}
+    return inputs, signatures, _zeros_aside(n_rows, dev)
 
 
 def k6_run(dev):
@@ -362,7 +425,7 @@ def k6_run(dev):
                           n, nf, jg, F, tg.ROW_WIDTH // (8 * F), res, j_lo, key, span=tg.K6_TILE)
 
     argtypes = tg._table_grad_pos_lib().table_grad_pos_launch.argtypes
-    return {"": (run, tg.table_grad_pos_plain(*args))}, "table_grad_pos_launch", argtypes, _zeros_aside(n_rows, dev)
+    return {"": (run, tg.table_grad_pos_plain(*args))}, {"table_grad_pos_launch": argtypes}, _zeros_aside(n_rows, dev)
 
 
 def main(argv=None) -> None:
@@ -375,13 +438,14 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
-    runs = {"k1": k1_run, "k2": k2_run, "k3": k3_run, "k6": k6_run}
+    runs = {"k1": k1_run, "k2": k2_run, "k3": k3_run, "k4": k4_run, "k6": k6_run}
     for kernel in kernels:
-        inputs, fn_name, argtypes, aside = runs[kernel](dev)
+        inputs, signatures, aside = runs[kernel](dev)
         libs = build(kernel, Path("build/kernel_variants"))
         for (name, keeps, _), lib in zip(VARIANTS[kernel][1], libs.values()):
-            getattr(lib, fn_name).argtypes = argtypes
-            getattr(lib, fn_name).restype = ctypes.c_int
+            for fn_name, argtypes in signatures.items():
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
             for label, (run, want) in inputs.items():
                 if not keeps:
                     continue

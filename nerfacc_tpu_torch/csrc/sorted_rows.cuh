@@ -1,6 +1,7 @@
-// The warp-span skeleton of two of the port's table-gradient kernels: K4
-// (csrc/table_grad.cu) and K5 (csrc/table_grad_sorted.cu).  K2 and K6 have
-// tile kernels of their own (csrc/table_grad_u10.cu, csrc/table_grad_pos.cu).
+// The warp-span skeleton of one of the port's table-gradient kernels: K5
+// (csrc/table_grad_sorted.cu) is its only user.  K2, K4 and K6 have tile
+// kernels of their own (csrc/table_grad_u10.cu, csrc/table_grad.cu,
+// csrc/table_grad_pos.cu).
 //
 // Samples arrive sorted by an int32 key that names their output row.  Each
 // warp reduces one contiguous span of `span` sorted samples: its lanes load
@@ -20,15 +21,6 @@
 #include <stdint.h>
 
 constexpr unsigned kAllLanes = 0xffffffffu;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Four consecutive values at p, as float.
 __device__ __forceinline__ void load4(const float* p, float (&d)[4]) {

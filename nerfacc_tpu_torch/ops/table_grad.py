@@ -112,13 +112,15 @@ def u10_corner_weights(wq: Tensor) -> Tensor:
 # Launching the sorted-row kernels
 # ---------------------------------------------------------------------------
 
-# Samples per warp: each warp of K4 and K5 reduces one contiguous span of
-# sorted samples.
+# Samples per warp: each warp of K5, the last user of the warp-span walk of
+# csrc/sorted_rows.cuh, reduces one contiguous span of sorted samples.
 _SPAN = 128
-# Samples per block of K2 (``kTile`` in csrc/table_grad_u10.cu) and pairs per
-# block of K6 (``kTile`` in csrc/table_grad_pos.cu); each kernel refuses any
-# other value.
+# Samples per block of K2 (``kTile`` in csrc/table_grad_u10.cu) and of K4 by
+# input type (``kTileBf16``, ``kTileF32`` in csrc/table_grad.cu), and pairs
+# per block of K6 (``kTile`` in csrc/table_grad_pos.cu); each kernel refuses
+# any other value.
 K2_TILE = 256
+K4_TILE = {torch.bfloat16: 256, torch.float32: 128}
 K6_TILE = 512
 _P = ctypes.c_void_p
 
@@ -180,6 +182,12 @@ def _check_operand(name: str, what: str, t: Tensor, dtypes, shape, device) -> No
     if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) or not t.is_contiguous() or t.device != device:
         want = "/".join(str(d).replace("torch.", "") for d in dtypes)
         raise ValueError(f"{name}: {what} must be contiguous {tuple(shape)} {want} on {device}")
+
+
+def _check_aligned(name: str, **tensors: Tensor) -> None:
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned (the kernel reads it 16 bytes at a time)")
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +258,7 @@ def table_grad_u10(
     n, dev = perm.shape[0], sorted_idx.device
     _check_operand(name, "dout", dout, (torch.bfloat16,), (n, F_PER_ROW), dev)
     _check_operand(name, "wq", wq, (torch.int32,), (n,), dev)
-    for what, t in (("sorted_idx", sorted_idx), ("perm", perm), ("dout", dout)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {what} must be 16-byte aligned (the kernel reads it 16 bytes at a time)")
+    _check_aligned(name, sorted_idx=sorted_idx, perm=perm, dout=dout)
     out = _launch(
         _table_grad_u10_lib(), "table_grad_u10_launch", (sorted_idx, perm, wq, dout), n_rows, _INV_1023,
         span=K2_TILE,
@@ -270,8 +276,10 @@ def table_grad_w3(
 ) -> Tensor:
     """Kernel K4 in ``w3`` mode: :func:`table_grad_u10`'s sum from the
     fractions ``wx, wy, wz`` and ``dout (N, 16)``, all float32 or all bf16.
-    A CPU tensor takes :func:`table_grad_w3_plain`; a CUDA tensor launches
-    the kernel or raises."""
+    A block stages :data:`K4_TILE` sorted samples of that type, as K2's
+    does.  A CPU tensor takes :func:`table_grad_w3_plain`; a CUDA tensor
+    launches the kernel (``sorted_idx``, ``perm`` and ``dout`` 16-byte
+    aligned) or raises."""
     if dout.device.type == "cpu":
         return table_grad_w3_plain(sorted_idx, perm, wx, wy, wz, dout, n_rows)
     name = "table_grad_w3"
@@ -280,9 +288,10 @@ def table_grad_w3(
     _check_operand(name, "dout", dout, (torch.float32, torch.bfloat16), (n, F_PER_ROW), dev)
     for what, w in (("wx", wx), ("wy", wy), ("wz", wz)):
         _check_operand(name, what, w, (dout.dtype,), (n,), dev)
+    _check_aligned(name, sorted_idx=sorted_idx, perm=perm, dout=dout)
     out = _launch(
         _table_grad_lib(), "table_grad_w3_launch", (sorted_idx, perm, wx, wy, wz, dout), n_rows,
-        int(dout.dtype == torch.bfloat16),
+        int(dout.dtype == torch.bfloat16), span=K4_TILE[dout.dtype],
     )
     table_grad_w3.launches += 1
     return out
@@ -297,7 +306,8 @@ def table_grad_w8(
     """Kernel K4 in ``w8`` mode: :func:`table_grad_u10`'s sum from the
     corner weights ``w8 (N, 8)`` and ``dout (N, 16)``, both float32 or both
     bf16.  A CPU tensor takes :func:`table_grad_w8_plain`; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernel (``sorted_idx``, ``perm``, ``w8`` and ``dout``
+    16-byte aligned) or raises."""
     if dout.device.type == "cpu":
         return table_grad_w8_plain(sorted_idx, perm, w8, dout, n_rows)
     name = "table_grad_w8"
@@ -305,9 +315,10 @@ def table_grad_w8(
     n, dev = perm.shape[0], sorted_idx.device
     _check_operand(name, "dout", dout, (torch.float32, torch.bfloat16), (n, F_PER_ROW), dev)
     _check_operand(name, "w8", w8, (dout.dtype,), (n, 8), dev)
+    _check_aligned(name, sorted_idx=sorted_idx, perm=perm, w8=w8, dout=dout)
     out = _launch(
         _table_grad_lib(), "table_grad_w8_launch", (sorted_idx, perm, w8, dout), n_rows,
-        int(dout.dtype == torch.bfloat16),
+        int(dout.dtype == torch.bfloat16), span=K4_TILE[dout.dtype],
     )
     table_grad_w8.launches += 1
     return out

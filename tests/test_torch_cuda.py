@@ -281,6 +281,40 @@ def test_table_grad_kernels_match_plain_versions_on_the_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k4_modes_match_plain_versions_on_the_card(cuda, case):
+    from nerfacc_tpu_torch.ops.table_grad import (
+        corner_weights,
+        table_grad_w3,
+        table_grad_w3_plain,
+        table_grad_w8,
+        table_grad_w8_plain,
+    )
+
+    sorted_idx, perm, w, dout, n_rows = _k2_inputs(case, cuda)
+    w8 = corner_weights(*w).contiguous()
+    untouched = torch.bincount(sorted_idx.long(), minlength=n_rows) == 0
+    for dtype in (torch.float32, torch.bfloat16):
+        d = dout.to(dtype)
+        for kernel, plain, args in (
+            (table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, *(c.to(dtype) for c in w), d, n_rows)),
+            (table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8.to(dtype), d, n_rows)),
+        ):
+            before = kernel.launches
+            got = kernel(*args)
+            assert kernel.launches == before + 1
+            want = plain(*args)
+            torch.cuda.synchronize()
+            # The same terms summed in float32 in another order (atomics in
+            # both); rows that no sample names stay zero, every named row
+            # receives its terms.
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), (kernel.__name__, dtype, err)
+            assert not got[untouched].any()
+            assert bool(got[~untouched].any(dim=1).all())
+
+
+@pytest.mark.cuda
 def test_cell_max_kernel_is_exact_on_the_card(cuda):
     from nerfacc_tpu_torch.ops.table_grad import cell_max, cell_max_plain
 
@@ -494,7 +528,14 @@ def test_k6_matches_its_plain_version_on_the_card(cuda, case):
 @pytest.mark.cuda
 def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
-    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_sorted, table_grad_u10, table_grad_w8
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.ops.table_grad import (
+        table_grad_pos,
+        table_grad_sorted,
+        table_grad_u10,
+        table_grad_w3,
+        table_grad_w8,
+    )
 
     idx = torch.zeros(8, dtype=torch.int32, device=cuda)
     perm = torch.arange(8, device=cuda)
@@ -519,3 +560,23 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
     dout = torch.zeros(8 * 16 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 16)
     with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
         table_grad_u10(idx, perm, wq, dout, 16)
+    # K4 reads sorted_idx, perm, w8 and dout 16 bytes at a time, and takes
+    # only the tile it was built with for each type.
+    w, d32 = torch.zeros(8, device=cuda), torch.zeros((8, 16), device=cuda)
+    with pytest.raises(ValueError, match="dout must be 16-byte aligned"):
+        table_grad_w3(idx, perm, w, w, w, torch.zeros(8 * 16 + 1, device=cuda)[1:].view(8, 16), 16)
+    with pytest.raises(ValueError, match="perm must be 16-byte aligned"):
+        table_grad_w3(idx, torch.arange(9, device=cuda)[1:], w, w, w, d32, 16)
+    with pytest.raises(ValueError, match="w8 must be 16-byte aligned"):
+        table_grad_w8(idx, perm, torch.zeros(8 * 8 + 1, device=cuda)[1:].view(8, 8), d32, 16)
+    with pytest.raises(ValueError, match="sorted_idx must be 16-byte aligned"):
+        table_grad_w8(torch.zeros(9, dtype=torch.int32, device=cuda)[1:], perm, torch.zeros((8, 8), device=cuda), d32, 16)
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = int(dtype == torch.bfloat16)
+        wd, dd = w.to(dtype), d32.to(dtype)
+        with pytest.raises(RuntimeError, match="table_grad_w3_launch: CUDA error"):
+            tg._launch(tg._table_grad_lib(), "table_grad_w3_launch", (idx, perm, wd, wd, wd, dd), 16, bf,
+                       span=2 * tg.K4_TILE[dtype])
+        with pytest.raises(RuntimeError, match="table_grad_w8_launch: CUDA error"):
+            tg._launch(tg._table_grad_lib(), "table_grad_w8_launch", (idx, perm, torch.zeros((8, 8), device=cuda,
+                       dtype=dtype), dd), 16, bf, span=tg.K4_TILE[dtype] // 2)

@@ -104,6 +104,10 @@ def test_k2_variant_substitutions_match_the_kernel_source(monkeypatch):
     _variants_match_their_source(monkeypatch, "k2", 8)
 
 
+def test_k4_variant_substitutions_match_the_kernel_source(monkeypatch):
+    _variants_match_their_source(monkeypatch, "k4", 6)
+
+
 def test_k1_variant_substitutions_match_the_kernel_source(monkeypatch):
     _variants_match_their_source(monkeypatch, "k1", 6)
 
