@@ -6,7 +6,8 @@
 
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
-ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
+ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phase 10
+none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -55,6 +56,21 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7):
    table gradient then launches K4-w3 in float32 every step.  The same
    counts and prints as phase 6, with the launches of K1, K4-w3 and K3, and
    a profile window; needs no other phase.
+10. train and eval, unbounded: the Mip-NeRF 360 configuration of
+   ``examples/train_ngp_nerf_occ.py:62-71`` (4 grid levels of 128^3, near
+   0.2, step 1e-3, cone 0.004, the visibility filter at ``alpha_thre``
+   1e-2, the contracted field at the example's default width L8 x F16,
+   float32, 8192 rays, 2^18 samples), its occupancy state from the
+   estimator's own updates (a warm-up update of every cell, then rounds of
+   16 steps and an update); 3 warm-up steps, 30 timed steps and 8 timed
+   updates with phase 6's prints, the filter's threshold and drop share,
+   ``macro_truncated_frac``, and the launches of K1, K4-w3 and K3 (exactly
+   one K4-w3 a step and four K3 an update); K1 and K3 on the phase's own
+   inputs, timed; a profile window with a ``visibility`` stage; one 800x800
+   eval view through the filter (``eval_render``, ``:309-322``); one step at
+   1024 rays and a 64x64 eval crop on the card against the CPU, where
+   visibility masks may differ only at threshold-adjacent samples.  Needs
+   no other phase.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -96,6 +112,20 @@ GROUPED_FIELD_CFG = dict(
 )
 TRAIN_RAYS, TRAIN_CAPACITY, TRAIN_MACRO = 16384, 1 << 19, 4
 TRAIN_ITERS, TRAIN_UPDATES = 30, 8
+# Phase 10: the Mip-NeRF 360 configuration of examples/train_ngp_nerf_occ.py
+# (:62-71: aabb +-1, 4 grid levels, near 0.2, step 1e-3, cone 0.004, alpha
+# threshold 1e-2, the unbounded field; the fused encoder at its defaults,
+# :164-170, that is FIELD_CFG; float32; 8192 rays and 2^18 samples, :49,238;
+# the eval render of :309-322 in 8192-ray chunks of 64 samples a ray).
+UNB_ROI = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
+UNB_LEVELS = 4
+UNB_RENDER_KW = dict(
+    near_plane=0.2, render_step_size=1e-3, cone_angle=0.004, alpha_thre=1e-2, max_macro_segments=24,
+)
+UNB_RAYS, UNB_CAPACITY, UNB_CHUNK = 8192, 1 << 18, 8192
+# The state is built as the example's loop builds it: one warm-up update of
+# every cell, then rounds of 16 steps and a post-warm-up update.
+UNB_STATE_ROUNDS = 2
 WIDTH = HEIGHT = 800
 FOCAL = 0.5 * WIDTH / math.tan(0.5 * 0.6911112070083618)  # lego's camera_angle_x
 CROP = 64
@@ -181,12 +211,16 @@ def profile_window(run, stages, what: str, out_name: str) -> None:
     "unattributed"), and the top kernels.  The full table goes to
     ``chiprun_out/<out_name>``."""
     import bisect
+    import gc
     import itertools
     from pathlib import Path
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # The CUDA graphs of earlier timings free their memory pools when
+    # collected; collect them now, not inside the untraced run.
+    gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -265,9 +299,14 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
     }
 
 
-def train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, capacity):
+def train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, capacity, render_kw=None,
+               sigma_fn=None):
     """One step of bench.py's train loop: render, Huber loss, backward, Adam.
-    Returns the loss and the kept-sample count, both on the device."""
+    ``render_kw`` replaces bench.py's traversal settings; ``sigma_fn`` (a
+    wrapper of the field's density, see :func:`density_fn`) turns on the
+    visibility filter where ``render_kw`` sets ``alpha_thre``.  Returns the
+    loss and the kept-sample count, both on the device, and the renderer's
+    extras."""
     from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays
     from torch.profiler import record_function
 
@@ -276,11 +315,12 @@ def train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, capacity)
         rgb, sigma = field(o + ((ts + te) / 2)[:, None] * d, d)
         return rgb, sigma[..., 0]
 
-    colors, _, _, n_samp, _ = occgrid_render_rays(
-        rgb_sigma_fn, None, est, state, rays_o, rays_d,
-        near_plane=0.0, far_plane=1e10, render_step_size=STEP,
+    if render_kw is None:
+        render_kw = dict(near_plane=0.0, render_step_size=STEP, max_macro_segments=TRAIN_MACRO)
+    colors, _, _, n_samp, extras = occgrid_render_rays(
+        rgb_sigma_fn, sigma_fn, est, state, rays_o, rays_d, far_plane=1e10,
         render_bkgd=torch.ones(3, device=rays_o.device), stratified=True, jitter=jitter,
-        sample_capacity=capacity, max_macro_segments=TRAIN_MACRO,
+        sample_capacity=capacity, **render_kw,
     )
     loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
     opt.zero_grad(set_to_none=True)
@@ -288,7 +328,23 @@ def train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, capacity)
         loss.backward()
     with record_function("optimizer"):
         opt.step()
-    return loss.detach(), n_samp
+    return loss.detach(), n_samp, extras
+
+
+def density_fn(field, rays_o, rays_d, record=None):
+    """The examples' ``sigma_fn``: the field's density at the sample
+    midpoints.  With a list ``record``, each call appends its inputs and its
+    output, ``(t_starts, t_ends, ray_indices, sigmas)``."""
+    from nerfacc_tpu_torch.rendering import gather_ray_od
+
+    def sigma_fn(ts, te, ri):
+        o, d = gather_ray_od(rays_o, rays_d, ri)
+        sigma = field.query_density(o + ((ts + te) / 2)[:, None] * d)[..., 0]
+        if record is not None:
+            record.append((ts, te, ri, sigma))
+        return sigma
+
+    return sigma_fn
 
 
 def occ_update(est, state, field, **draw_kw):
@@ -301,13 +357,14 @@ def occ_update(est, state, field, **draw_kw):
         )
 
 
-def k1_on_train_inputs(step, state) -> float:
+def k1_on_train_inputs(step, state) -> dict:
     """K1 against its plain version on the queries that one train step gives
     it: the macro-skip probes on ``state.skip_packed`` (``mip_pad=1``) and
     the lattice queries on ``state.binaries_packed``, recorded as
     ``traverse_and_compact`` makes them.  Exact, and equal to ``_query_soa``
     on the unpacked grid; each timed beside its bound.  Returns the largest
-    difference."""
+    difference (``err``) and, under ``lattice``, the lattice queries' times,
+    bytes and operations."""
     import nerfacc_tpu_torch.grid as grid_mod
     from nerfacc_tpu_torch.ops.occ_query import _query_soa, occupancy_query, occupancy_query_plain
 
@@ -323,7 +380,7 @@ def k1_on_train_inputs(step, state) -> float:
     finally:
         grid_mod.occupancy_query = occupancy_query
     unpacked = {id(state.skip_packed): state.skip_grid, id(state.binaries_packed): state.binaries}
-    kinds, timed, err = set(), set(), 0.0
+    kinds, timed, err, lattice = set(), set(), 0.0, None
     for packed, aabb, pts, rz, mip_pad in calls:
         if id(packed) not in unpacked:
             fail("K1 on the train path: a query on a grid that is neither skip_packed nor binaries_packed")
@@ -347,9 +404,11 @@ def k1_on_train_inputs(step, state) -> float:
             bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
             print(f"K1 train path, {label} mip_pad={mip_pad}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound:.4f} ms ({nbytes} B), {100 * bound / ms:.1f}% of bound", flush=True)
+            if label == "binaries_packed":
+                lattice = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
     if kinds != {("skip_packed", 1), ("binaries_packed", 0)}:
         fail(f"K1 on the train path: expected skip probes and lattice queries, saw {sorted(kinds)}")
-    return err
+    return dict(err=err, lattice=lattice)
 
 
 def k3_checked_and_timed(label, ids, vals, n_cells, dev) -> dict:
@@ -381,12 +440,13 @@ def k3_checked_and_timed(label, ids, vals, n_cells, dev) -> dict:
     return o
 
 
-def k3_on_update_inputs(update, dev) -> dict:
+def k3_on_update_inputs(update, dev, levels=1) -> dict:
     """K3 on the ids and values that one real occupancy update gives it
     (bench.py's post-warmup draws: a uniform half and a ``sysrow`` half of
     rows of 128 ascending occupied ids), recorded as ``_update`` passes
-    them."""
+    them: one call a level, each exact, the first timed."""
     import nerfacc_tpu_torch.estimators.occ_grid as occ_mod
+    from nerfacc_tpu_torch.ops.table_grad import cell_max_plain
 
     cell_max = occ_mod.cell_max
     calls = []
@@ -400,8 +460,11 @@ def k3_on_update_inputs(update, dev) -> dict:
         update()
     finally:
         occ_mod.cell_max = cell_max
-    if len(calls) != 1:
-        fail(f"K3 on the update: expected one call a one-level update, saw {len(calls)}")
+    if len(calls) != levels:
+        fail(f"K3 on the update: expected one call a level ({levels}), saw {len(calls)}")
+    for lvl, (ids, vals, n_cells) in enumerate(calls[1:], start=1):
+        if not torch.equal(cell_max(ids, vals, n_cells), cell_max_plain(ids, vals, n_cells)):
+            fail(f"K3 is not exact against its plain version on level {lvl} of one update")
     return k3_checked_and_timed("on one update's draws", *calls[0], dev)
 
 
@@ -665,7 +728,7 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
 
     def step():
         jitter = torch.rand((TRAIN_RAYS,), generator=gen, device=dev)
-        return train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, TRAIN_CAPACITY)
+        return train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, TRAIN_CAPACITY)[:2]
 
     def update():
         return occ_update(est, state, field, generator=gen)
@@ -715,7 +778,7 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
         fail(f"train: {total} samples in {TRAIN_ITERS} steps is not near the capacity")
     k1_err = 0.0
     if check_inputs:
-        k1_err = k1_on_train_inputs(step, state)
+        k1_err = k1_on_train_inputs(step, state)["err"]
         k3_on_update_inputs(update, dev)
 
     def steps_and_update():
@@ -730,6 +793,43 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
         f"train {what} (3 steps and 1 update)", profile_name,
     )
     return field, launches, k1_err
+
+
+def hold_step(label, a, b, tol, mlp_tol, what) -> None:
+    """One train step on the card (``a``) against the CPU (``b``), each a
+    dict of the kept-sample count ``n``, the ``loss``, the ``grads`` and the
+    ``params`` after Adam: equal counts, the loss within ``tol`` relative,
+    the table's gradient within ``tol`` and the others within ``mlp_tol`` of
+    their largest value, the parameters held where the gradients' signs
+    agree."""
+    if a["n"] != b["n"]:
+        fail(f"card vs CPU ({label}): kept samples {a['n']} vs {b['n']}")
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    worst = {}
+    for k, g_cpu in b["grads"].items():
+        g_gpu = a["grads"][k]
+        k_tol = tol if k == "encoder.table" else mlp_tol
+        g_tol = k_tol * float(g_cpu.abs().max())
+        worst[k] = float((g_gpu - g_cpu).abs().max()) / max(float(g_cpu.abs().max()), 1e-30)
+        # Adam's first step moves a parameter by lr * g / (|g| + eps),
+        # about lr * sign(g); a sign may differ only where the gradients
+        # agree within g_tol, and the step is held where the signs agree
+        # and |g| is far above eps = 1e-15.
+        agree = torch.sign(g_gpu) == torch.sign(g_cpu)
+        held = agree & (g_cpu.abs() > 1e-9)
+        p_err = float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max())
+        if worst[k] > k_tol or not bool((g_cpu[~agree].abs() <= g_tol).all()) or p_err > 1e-6:
+            fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}), "
+                 f"params after Adam err {p_err:.3e}")
+    print(
+        f"card vs CPU train step ({label}, {what}): samples "
+        f"{a['n']} = {b['n']}, loss {a['loss']:.7f} vs {b['loss']:.7f} (rel err {loss_err:.2e}), "
+        f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), worst over "
+        f"parameters {max(worst.values()):.2e} (tol {mlp_tol}); CPU step {b['s']:.1f} s",
+        flush=True,
+    )
+    if loss_err > tol:
+        fail(f"card vs CPU ({label}): loss rel err {loss_err} > {tol}")
 
 
 def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
@@ -788,7 +888,7 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
             for w in wrappers:
                 getattr(tg, w).launches = 0
             t0 = time.perf_counter()
-            loss, n_samp = train_step(
+            loss, n_samp, _ = train_step(
                 field, opt, est, state, rays_o.to(device), rays_d.to(device),
                 pixels.to(device), jitter.to(device), capacity,
             )
@@ -809,34 +909,7 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
                 s=time.perf_counter() - t0,
             ))
         a, b = res  # card, CPU
-        if a["n"] != b["n"]:
-            fail(f"card vs CPU ({label}): kept samples {a['n']} vs {b['n']}")
-        loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
-        worst = {}
-        for k, g_cpu in b["grads"].items():
-            g_gpu = a["grads"][k]
-            k_tol = tol if k == "encoder.table" else mlp_tol
-            g_tol = k_tol * float(g_cpu.abs().max())
-            worst[k] = float((g_gpu - g_cpu).abs().max()) / max(float(g_cpu.abs().max()), 1e-30)
-            # Adam's first step moves a parameter by lr * g / (|g| + eps),
-            # about lr * sign(g); a sign may differ only where the gradients
-            # agree within g_tol, and the step is held where the signs agree
-            # and |g| is far above eps = 1e-15.
-            agree = torch.sign(g_gpu) == torch.sign(g_cpu)
-            held = agree & (g_cpu.abs() > 1e-9)
-            p_err = float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max())
-            if worst[k] > k_tol or not bool((g_cpu[~agree].abs() <= g_tol).all()) or p_err > 1e-6:
-                fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}), "
-                     f"params after Adam err {p_err:.3e}")
-        print(
-            f"card vs CPU train step ({label}, {n_rays} rays, capacity {capacity}): samples "
-            f"{a['n']} = {b['n']}, loss {a['loss']:.7f} vs {b['loss']:.7f} (rel err {loss_err:.2e}), "
-            f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), worst over "
-            f"parameters {max(worst.values()):.2e} (tol {mlp_tol}); CPU step {b['s']:.1f} s",
-            flush=True,
-        )
-        if loss_err > tol:
-            fail(f"card vs CPU ({label}): loss rel err {loss_err} > {tol}")
+        hold_step(label, a, b, tol, mlp_tol, f"{n_rays} rays, capacity {capacity}")
         if b["occs"] is not None:
             occ = b["occs"]
             thre = min(float(occ[occ >= 0].mean()), 1e-2)
@@ -851,6 +924,363 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
             if bool((flips & ~near).any()):
                 fail("card vs CPU: the occupancy grids differ away from the threshold")
     return launches
+
+
+def unbounded_rays(rng, n: int, dev) -> tuple:
+    """``n`` rays from origins on the unit sphere (the median camera distance
+    after ``similarity_from_cameras``, ``nerf_360_v2.py:66-67``), each aimed
+    at a point drawn uniformly in +-0.5, and random pixels."""
+    o = rng.normal(size=(n, 3))
+    o /= np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, size=(n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pixels = rng.random((n, 3), dtype=np.float32)
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (o, d, pixels))
+
+
+def unbounded_field(est, dev, weights=None):
+    """The phase's field: ``FIELD_CFG`` in float32 on the outer box with the
+    scene contraction, random weights from seed 0 (or ``weights``)."""
+    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+
+    field = NGPRadianceField(
+        aabb=est._aabbs_np[-1].tolist(), unbounded=True, compute_dtype=None, device=dev,
+        generator=torch.Generator().manual_seed(0), **FIELD_CFG,
+    )
+    if weights is not None:
+        field.load_state_dict({k: v.to(dev) for k, v in weights.items()})
+    return field
+
+
+def state_on(state, device):
+    """An ``OccGridState`` with every tensor moved to ``device``."""
+    import dataclasses
+
+    return state.replace(**{f.name: getattr(state, f.name).to(device) for f in dataclasses.fields(state)})
+
+
+def eval_render(est, state, field, o, d, record=None) -> tuple:
+    """``eval_render`` of ``examples/train_ngp_nerf_occ.py:309-322``: chunks
+    of ``UNB_CHUNK`` rays (the last padded with its last ray) through
+    ``occgrid_render_rays`` with the visibility filter, 64 samples a ray, no
+    stratification, a white background.  Returns the colours, the rendered
+    samples and each chunk's ``(kept, ray_indices)``; ``record`` goes to
+    :func:`density_fn`."""
+    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays
+
+    imgs, total, layouts = [], 0, []
+    with torch.no_grad():
+        for j in range(0, o.shape[0], UNB_CHUNK):
+            oc, dc = o[j : j + UNB_CHUNK], d[j : j + UNB_CHUNK]
+            n_real = oc.shape[0]
+            if n_real < UNB_CHUNK:
+                oc = torch.cat([oc, oc[-1:].expand(UNB_CHUNK - n_real, 3)])
+                dc = torch.cat([dc, dc[-1:].expand(UNB_CHUNK - n_real, 3)])
+
+            def rgb_sigma_fn(ts, te, ri, oc=oc, dc=dc):
+                oo, dd = gather_ray_od(oc, dc, ri)
+                rgb, sigma = field(oo + ((ts + te) / 2)[:, None] * dd, dd)
+                return rgb, sigma[..., 0]
+
+            colors, _, _, n_s, extras = occgrid_render_rays(
+                rgb_sigma_fn, density_fn(field, oc, dc, record), est, state, oc, dc,
+                far_plane=1e10, render_bkgd=torch.ones(3, device=o.device),
+                sample_capacity=UNB_CHUNK * 64, **UNB_RENDER_KW,
+            )
+            imgs.append(colors[:n_real])
+            total += n_s
+            layouts.append((extras["kept"], extras["ray_indices"]))
+    return torch.cat(imgs), int(total), layouts
+
+
+def same_traversal(label, pa, pb) -> None:
+    """The density passes' inputs on the card (``pa``) and the CPU (``pb``),
+    each ``(t_starts, t_ends, ray_indices, sigmas)``: the same samples of the
+    same rays, t values within 1e-6 of the largest."""
+    ts_a, te_a, ri_a = (x.cpu() for x in pa[:3])
+    ts_b, te_b, ri_b = pb[:3]
+    if not torch.equal(ri_a, ri_b) or not torch.equal(te_a > ts_a, te_b > ts_b):
+        fail(f"card vs CPU ({label}): the traversals kept different samples "
+             f"({int((te_a > ts_a).sum())} vs {int((te_b > ts_b).sum())})")
+    err = max(float((ts_a - ts_b).abs().max()), float((te_a - te_b).abs().max()))
+    scale = float(te_b.abs().max())
+    if err > 1e-6 * scale:
+        fail(f"card vs CPU ({label}): traversal t max abs err {err} > 1e-6 * {scale}")
+
+
+def alphas_trans(p) -> tuple:
+    """``(alphas, trans)`` of a density pass ``p``, as the filter sees them,
+    computed on the pass's device and returned on the CPU."""
+    from nerfacc_tpu_torch.volrend import render_transmittance_from_density
+
+    ts, te, ri, sigma = p
+    trans, alphas = render_transmittance_from_density(ts, te, torch.where(te > ts, sigma, 0.0), ray_indices=ri)
+    return alphas.cpu(), trans.cpu()
+
+
+# alpha = 1 - exp(-sigma dt) in float32, and exp(-sigma dt) lies just below
+# 1, where float32 values are 2^-24 apart: alpha moves in steps of 2^-24
+# (6.0e-8, 5.5e-5 of a threshold near 1e-3), and the card's exp and the
+# CPU's differ by a step now and then.
+ALPHA_STEP = 2.0**-24
+
+
+def threshold_adjacent(at, thre: float, eps: float = 1e-4) -> torch.Tensor:
+    """The samples whose alpha (``at = (alphas, trans)`` of the CPU's density
+    pass) lies within 1e-5 (relative) and two alpha steps of the filter's
+    threshold ``thre``, or whose transmittance lies within 1e-5 of ``eps``:
+    there the card's last-bit differences may flip the filter."""
+    alphas, trans = at
+    return ((alphas - thre).abs() <= 1e-5 * thre + 2 * ALPHA_STEP) | ((trans - eps).abs() <= 1e-5)
+
+
+def report_flips(label, at_a, at_b, differ, near, thre) -> None:
+    """For the samples kept on one side only away from the thresholds: the
+    card's and the CPU's alpha and transmittance (the first few)."""
+    (a_a, t_a), (a_b, t_b) = at_a, at_b
+    bad = torch.nonzero(differ & ~near)[:, 0]
+    d = (a_a - a_b)[bad].abs()
+    print(f"{label}: {bad.numel()} samples away from the thresholds kept on one side only; "
+          f"|alpha card - alpha CPU| there max {float(d.max()):.3e} = {float(d.max()) / ALPHA_STEP:.2f} steps, "
+          f"|alpha CPU - threshold| max {float((a_b[bad] - thre).abs().max()):.3e}", flush=True)
+    for i in bad[:5].tolist():
+        print(f"  sample {i}: alpha card {float(a_a[i]):.9e} CPU {float(a_b[i]):.9e}, threshold {thre:.9e}, "
+              f"trans card {float(t_a[i]):.6e} CPU {float(t_b[i]):.6e}", flush=True)
+
+
+def unbounded_card_vs_cpu(dev, est, state, weights, crop_o, crop_d) -> None:
+    """One unbounded train step at 1024 rays and 2^15 samples, full field
+    width, on the card and on the CPU from the same weights, jitter and
+    occupancy state; then a crop through the eval path.  The traversals
+    must agree; the visibility masks may differ only on threshold-adjacent
+    samples (:func:`threshold_adjacent`); where they agree, the step is held
+    to phase 8's float32 tolerances and the crop to phase 4's atol 1e-4."""
+    cpu = torch.device("cpu")
+    n_rays, capacity = 1024, 1 << 15
+    rng = np.random.default_rng(3)
+    rays_o, rays_d, pixels = unbounded_rays(rng, n_rays, cpu)
+    jitter = torch.from_numpy(rng.random(n_rays, dtype=np.float32))
+    thre = float(state.occs.cpu().mean().clamp(max=UNB_RENDER_KW["alpha_thre"]))
+    res = []
+    for device in (dev, cpu):
+        field = unbounded_field(est, device, weights)
+        opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+        st = state_on(state, device)
+        ro, rd = rays_o.to(device), rays_d.to(device)
+        record = []
+        t0 = time.perf_counter()
+        loss, n_samp, extras = train_step(
+            field, opt, est, st, ro, rd, pixels.to(device), jitter.to(device), capacity,
+            UNB_RENDER_KW, density_fn(field, ro, rd, record),
+        )
+        (p,) = record
+        res.append(dict(
+            loss=float(loss), n=int(n_samp), kept=extras["kept"].cpu(),
+            grads={k: q.grad.detach().cpu() for k, q in field.named_parameters()},
+            params={k: q.detach().cpu() for k, q in field.named_parameters()},
+            p=tuple(x.detach().cpu() for x in p), at=alphas_trans(p), s=time.perf_counter() - t0,
+        ))
+    a, b = res
+    same_traversal("unbounded step", a["p"], b["p"])
+    near = threshold_adjacent(b["at"], thre)
+    differ = a["kept"] != b["kept"]
+    print(f"card vs CPU unbounded step: threshold {thre:.6e}, {int((b['p'][1] > b['p'][0]).sum())} "
+          f"traversed samples, {int(near.sum())} threshold-adjacent, {int(differ.sum())} kept on one side only",
+          flush=True)
+    if bool((differ & ~near).any()):
+        report_flips("card vs CPU unbounded step", a["at"], b["at"], differ, near, thre)
+        fail(f"card vs CPU unbounded step: {int((differ & ~near).sum())} samples away from the "
+             "thresholds kept on one side only")
+    if bool(differ.any()):
+        print("card vs CPU unbounded step: the masks differ at threshold-adjacent samples, "
+              "so the loss and gradients are not held", flush=True)
+    else:
+        hold_step("unbounded float32", a, b, 1e-4, 3e-4, f"{n_rays} rays, capacity {capacity}")
+
+    out = []
+    for device in (dev, cpu):
+        record = []
+        t0 = time.perf_counter()
+        img, total, layouts = eval_render(
+            est, state_on(state, device), unbounded_field(est, device, weights),
+            crop_o.to(device), crop_d.to(device), record,
+        )
+        out.append(dict(img=img.cpu(), total=total, layouts=[(k.cpu(), r.cpu()) for k, r in layouts],
+                        p=[tuple(x.cpu() for x in q) for q in record], at=[alphas_trans(q) for q in record],
+                        s=time.perf_counter() - t0))
+    a, b = out
+    exempt = torch.zeros(crop_o.shape[0], dtype=torch.bool)
+    n_near = n_differ = 0
+    for (ka, _), (kb, rb), pa, pb, at_a, at_b in zip(a["layouts"], b["layouts"], a["p"], b["p"], a["at"], b["at"]):
+        same_traversal("crop", pa, pb)
+        near = threshold_adjacent(at_b, thre)
+        differ = ka != kb
+        n_near += int(near.sum())
+        n_differ += int(differ.sum())
+        if bool((differ & ~near).any()):
+            report_flips("card vs CPU crop", at_a, at_b, differ, near, thre)
+            fail("card vs CPU crop: samples away from the thresholds kept on one side only")
+        # A ray with a sample kept on one side only is not held; the layouts
+        # are the traversal's, so both sides name the same rays.
+        rays = rb[differ].long()
+        exempt[rays[rays < exempt.shape[0]]] = True
+    err = float((a["img"] - b["img"])[~exempt].abs().max())
+    print(f"card vs CPU crop ({crop_o.shape[0]} rays): samples {a['total']} vs {b['total']}, "
+          f"{n_near} threshold-adjacent, {n_differ} kept on one side only ({int(exempt.sum())} rays not held), "
+          f"rgb max abs err {err:.3e}; CPU render {b['s']:.1f} s", flush=True)
+    if err > 1e-4:
+        fail(f"card vs CPU crop: rgb disagrees beyond atol 1e-4: {err}")
+
+
+def train_unbounded(dev) -> dict:
+    """Phase 10: the unbounded float32 NGP-occ train step with the
+    visibility filter at full width (``UNB_*``), its occupancy state built
+    by the estimator's own updates, then one 800x800 eval view through the
+    filter, then the card against the CPU.  Returns the launches of K1,
+    K4-w3 and K3 on the train path and K1's and K3's numbers on the phase's
+    own inputs."""
+    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
+    from nerfacc_tpu_torch.datasets.utils import generate_rays
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, table_grad_w3
+    from torch.profiler import record_function
+
+    t_phase = time.perf_counter()
+    est = OccGridEstimator(roi_aabb=UNB_ROI, resolution=GRID_RES, levels=UNB_LEVELS, skip_factor=2)
+    kw = UNB_RENDER_KW
+    plan = est.plan_traversal(kw["render_step_size"], kw["cone_angle"], kw["near_plane"],
+                              max_macro_segments=kw["max_macro_segments"])
+    print(f"train unbounded: plan (lattice, use_skip, macro_stride, max_macro, row_cap) = {plan}", flush=True)
+    field = unbounded_field(est, dev)
+    opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+    rays_o, rays_d, pixels = unbounded_rays(np.random.default_rng(0), UNB_RAYS, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cur = {"state": est.init(dev)}
+    record = []
+    sigma_fn = density_fn(field, rays_o, rays_d, record)
+
+    def step():
+        jitter = torch.rand((UNB_RAYS,), generator=gen, device=dev)
+        return train_step(field, opt, est, cur["state"], rays_o, rays_d, pixels, jitter, UNB_CAPACITY,
+                          kw, sigma_fn)
+
+    def update(warmup=False):
+        # The example's occ_eval_fn: density times the step size.
+        with record_function("occ_update"):
+            return est._update(
+                cur["state"], 0 if warmup else 10**9,
+                lambda x: field.query_density(x) * kw["render_step_size"], generator=gen,
+            )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    occupancy_query.launches = table_grad_w3.launches = cell_max.launches = 0
+    t0 = time.perf_counter()
+    cur["state"] = update(warmup=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # Untrained, the field's density is about exp(-1) everywhere, so every
+    # occupancy sits at the mean that sets the filter's threshold; the steps
+    # between the updates give the density its spread.
+    losses = []
+    for _ in range(UNB_STATE_ROUNDS):
+        losses += [step()[0] for _ in range(16)]
+        cur["state"] = update()
+    n_updates = 1 + UNB_STATE_ROUNDS
+    thre = float(cur["state"].occs.mean().clamp(max=kw["alpha_thre"]))
+    losses += [step()[0] for _ in range(3)]  # warm-up
+    torch.cuda.synchronize()
+    record.clear()
+    t0 = time.perf_counter()
+    n_samps, truncs = [], []
+    for _ in range(TRAIN_ITERS):
+        loss, n_samp, extras = step()
+        losses.append(loss)
+        n_samps.append(n_samp)
+        truncs.append(extras["macro_truncated_frac"])
+    torch.cuda.synchronize()
+    step_time = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_UPDATES):
+        cur["state"] = update()
+    torch.cuda.synchronize()
+    update_time = (time.perf_counter() - t0) / TRAIN_UPDATES
+    n_updates += TRAIN_UPDATES
+    n_steps = 16 * UNB_STATE_ROUNDS + 3 + TRAIN_ITERS
+    launches = {"K1": occupancy_query.launches, "K4-w3": table_grad_w3.launches, "K3": cell_max.launches}
+    total = int(torch.stack(n_samps).sum())
+    traversed = int(sum(int((te > ts).sum()) for ts, te, _, _ in record))
+    record.clear()
+    drop = 1.0 - total / max(traversed, 1)
+    trunc = float(torch.stack(truncs).mean())
+    sps = total / (step_time + TRAIN_ITERS / 16.0 * update_time)
+    first, last = float(losses[0]), float(losses[-1])
+    print(
+        f"train (unbounded, float32): {sps:.1f} samples/s ({total} samples in {TRAIN_ITERS} steps), "
+        f"step {step_time / TRAIN_ITERS * 1e3:.2f} ms, occupancy update {update_time * 1e3:.2f} ms "
+        f"(warm-up update {warm_s * 1e3:.1f} ms), launches "
+        + " ".join(f"{k} {v}" for k, v in launches.items())
+        + f" ({n_steps} steps, {n_updates} updates), max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+        f"loss first {first:.6f} last {last:.6f}, threshold {thre:.6e}, the filter dropped {drop:.4f} of "
+        f"{traversed} traversed samples, macro_truncated_frac {trunc:.4f}, occupied "
+        f"{int(cur['state'].binaries.sum())} of {cur['state'].binaries.numel()} cells",
+        flush=True,
+    )
+    if not all(math.isfinite(float(x)) for x in losses):
+        fail("train unbounded: a loss is not finite")
+    if not thre > 0.0:
+        fail(f"train unbounded: the filter's threshold is {thre}, so the alpha test is inert")
+    if not drop > 0.0:
+        fail("train unbounded: the visibility filter dropped no traversed sample")
+    want = {"K4-w3": n_steps, "K3": UNB_LEVELS * n_updates}
+    if launches["K1"] <= 0 or any(launches[k] != v for k, v in want.items()):
+        fail(f"train unbounded: launches {launches}, expected K1 > 0 and {want}")
+    k1 = k1_on_train_inputs(step, cur["state"])
+    k3 = k3_on_update_inputs(update, dev, levels=UNB_LEVELS)
+
+    def steps_and_update():
+        for _ in range(3):
+            step()
+        update()
+
+    profile_window(
+        steps_and_update,
+        ("traverse_and_compact", "visibility", "field_forward", "gather_combine", "rendering", "backward",
+         "table_grad", "optimizer", "occ_update"),
+        "train unbounded float32 (3 steps and 1 update)", "profile_train_unbounded.txt",
+    )
+    record.clear()
+
+    # The eval view: a camera at radius 1, as the scenes are normalised.
+    c2w = pose_spherical(math.radians(-30.0), math.radians(-30.0), 1.0)[:3, :4]
+    K = np.array([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]], np.float32)
+    xs, ys = np.meshgrid(np.arange(WIDTH), np.arange(HEIGHT), indexing="xy")
+    rays = generate_rays(xs, ys, K, c2w, device=dev)
+    state = cur["state"]
+    torch.cuda.synchronize()
+    occupancy_query.launches = 0
+    t0 = time.perf_counter()
+    img, n_eval, _ = eval_render(est, state, field, rays.origins.reshape(-1, 3), rays.viewdirs.reshape(-1, 3))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eval_k1 = occupancy_query.launches
+    print(f"eval unbounded: {WIDTH * HEIGHT} rays in {dt:.3f} s = {WIDTH * HEIGHT / dt:.1f} rays/s, "
+          f"{n_eval} samples, K1 launches {eval_k1}", flush=True)
+    if eval_k1 <= 0:
+        fail("eval unbounded: the eval path never launched K1")
+    if not bool(torch.isfinite(img).all()) or not (0.0 <= float(img.min()) and float(img.max()) <= 1.0 + 1e-6):
+        fail("eval unbounded: the image is not finite or outside [0, 1]")
+    if n_eval <= 0:
+        fail("eval unbounded: no sample rendered")
+
+    r0, c0 = (HEIGHT - CROP) // 2, (WIDTH - CROP) // 2
+    crop_o = rays.origins[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
+    crop_d = rays.viewdirs[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
+    weights = {k: v.detach().clone() for k, v in field.state_dict().items()}
+    unbounded_card_vs_cpu(dev, est, state, weights, crop_o, crop_d)
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k3=k3)
 
 
 def k1_render_inputs(dev, rng) -> tuple:
@@ -1059,7 +1489,7 @@ def serve(dev, est, state, crop: bool) -> None:
         fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -1149,6 +1579,10 @@ def main(argv=None) -> None:
             compute_dtype=None,
         )
 
+    # ---- 10. train and eval, unbounded, with the visibility filter ---------
+    if 10 in run:
+        unb = train_unbounded(dev)
+
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
         # K1's launches here are the fused train path's (phase 6); the serve
@@ -1174,6 +1608,17 @@ def main(argv=None) -> None:
                 ("table_grad_pos", "K6", "table_grad_pos.cu", "1488", grouped_launches["K6"]),
                 ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
             )
+        ] + [
+            # K1 and K3 again on the unbounded train path (phase 10): K1 on
+            # one step's 4-level lattice queries, K3 at 2^23 cells on one
+            # update's draws.
+            kernel_row("occupancy_query_unbounded", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       unb["launches"]["K1"], unb["k1"]["err"], unb["k1"]["lattice"]["ms"],
+                       unb["k1"]["lattice"]["plain_ms"], unb["k1"]["lattice"]["bytes"],
+                       unb["k1"]["lattice"]["ops"], None),
+            kernel_row("cell_max_unbounded", src + "cell_max.cu", tg_py + "1918", unb["launches"]["K3"],
+                       unb["k3"]["err"], unb["k3"]["ms"], unb["k3"]["plain_ms"], unb["k3"]["bytes"],
+                       unb["k3"]["ops"], unb["k3"]["library_ms"]),
         ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -15,7 +15,10 @@ with the NGP field's backward and the occupancy update
 :meth:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator._update`),
 with the fused encoder (every table-gradient route) or the grouped
 tcnn-shape encoder
-(:class:`~nerfacc_tpu_torch.models.hash_soa.HashGridEncoderGrouped`).
+(:class:`~nerfacc_tpu_torch.models.hash_soa.HashGridEncoderGrouped`), and
+the visibility filter that the unbounded (Mip-NeRF 360) configuration turns
+on (``alpha_thre``, ``refilter_capacity``, ``sampling(sigma_fn=)``,
+``mark_invisible_cells``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Occupancy-grid estimator: state, traversal planning, sampling and the
 occupancy EMA update.
 
-Port of ``nerfacc_tpu/estimators/occ_grid.py:46-657``.  The state keeps the
+Port of ``nerfacc_tpu/estimators/occ_grid.py:46-725``.  The state keeps the
 boolean grid, its macro-skip grid, and bit-packed copies of both in the
 port's own layout (``(levels, rx, ry, ceil(rz / 32))`` int32 words, see
 :func:`~nerfacc_tpu_torch.ops.occ_query.bitpack_grid`) for kernel K1.
@@ -10,9 +10,6 @@ Random draws (the stratified near-plane jitter, the cells an update probes
 and the jitter inside them) are tensors the caller passes, or come from a
 ``torch.Generator``: ``jax.random`` bits cannot be reproduced, so the
 parity tests hand both packages the same draws.
-
-``mark_invisible_cells`` and the visibility filter of ``sampling``
-(``sigma_fn``/``alpha_fn``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +31,7 @@ from ..grid import (
 )
 from ..ops.occ_query import bitpack_grid
 from ..ops.table_grad import cell_max
+from ..volrend import render_visibility_from_alpha, render_visibility_from_density
 from .base import AbstractEstimator
 
 Tensor = torch.Tensor
@@ -196,6 +194,8 @@ class OccGridEstimator(AbstractEstimator):
         rays_d: Tensor,
         sigma_fn: Optional[Callable] = None,
         alpha_fn: Optional[Callable] = None,
+        early_stop_eps: float = 1e-4,
+        alpha_thre: float = 0.0,
         return_extras: bool = False,
         **kwargs,
     ):
@@ -203,16 +203,38 @@ class OccGridEstimator(AbstractEstimator):
 
         Returns flat arrays of fixed length ``(ray_indices, t_starts, t_ends,
         is_valid)``, compacted and sorted by ray; ``kwargs`` are those of
-        :meth:`compact_samples`.  ``return_extras`` adds a dict with
-        ``macro_truncated`` and ``macro_truncated_frac``.  Not
+        :meth:`compact_samples` (``near_plane``, ``t_min``, ``t_max``, ...).
+        With ``sigma_fn`` or ``alpha_fn`` (called as ``fn(t_starts, t_ends,
+        ray_indices)``) and ``alpha_thre > 0`` or ``early_stop_eps > 0``,
+        samples whose transmittance is below ``early_stop_eps`` or whose
+        alpha is below ``min(alpha_thre, mean(state.occs))`` are dropped:
+        ``is_valid`` False and ``t_ends = t_starts``.  ``return_extras`` adds
+        a dict with ``macro_truncated`` and ``macro_truncated_frac``.  Not
         differentiable.
         """
-        if sigma_fn is not None or alpha_fn is not None:
-            raise NotImplementedError(
-                "sampling: the visibility filter (sigma_fn/alpha_fn) is not ported yet"
-            )
         cs = self.compact_samples(state, rays_o, rays_d, **kwargs)
-        out = (cs.ray_indices, cs.t_starts, cs.t_ends, cs.kept)
+        t_starts, t_ends, is_valid, ray_indices = cs.t_starts, cs.t_ends, cs.kept, cs.ray_indices
+        if (alpha_thre > 0.0 or early_stop_eps > 0.0) and (
+            sigma_fn is not None or alpha_fn is not None
+        ):
+            with torch.no_grad():
+                # The raw mean, -1 cells included, as the JAX package takes it.
+                thre = state.occs.mean().clamp(max=alpha_thre)
+                if sigma_fn is not None:
+                    sigmas = torch.where(is_valid, sigma_fn(t_starts, t_ends, ray_indices), 0.0)
+                    masks = render_visibility_from_density(
+                        t_starts, t_ends, sigmas, ray_indices=ray_indices,
+                        early_stop_eps=early_stop_eps, alpha_thre=thre,
+                    )
+                else:
+                    alphas = torch.where(is_valid, alpha_fn(t_starts, t_ends, ray_indices), 0.0)
+                    masks = render_visibility_from_alpha(
+                        alphas, ray_indices=ray_indices,
+                        early_stop_eps=early_stop_eps, alpha_thre=thre,
+                    )
+            is_valid = is_valid & masks
+            t_ends = torch.where(is_valid, t_ends, t_starts)
+        out = (ray_indices, t_starts, t_ends, is_valid)
         if return_extras:
             extras = {
                 "macro_truncated": cs.macro_truncated,
@@ -421,6 +443,56 @@ class OccGridEstimator(AbstractEstimator):
         thre = torch.clamp(mean_occ, max=occ_thre)
         binaries = (occs > thre).reshape(state.binaries.shape)
         return state.replace(occs=occs, **self._grids(binaries))
+
+    @torch.no_grad()
+    def mark_invisible_cells(
+        self,
+        state: OccGridState,
+        K: Tensor,  # (N, 3, 3) or (1, 3, 3)
+        c2w: Tensor,  # (N, 3, 4) or (N, 4, 4)
+        width: int,
+        height: int,
+        near_plane: float = 0.0,
+        chunk: int = 32**3,
+    ) -> OccGridState:
+        """Set ``occs`` to -1 in cells outside every camera's frustum and to 0
+        in the rest (``occ_grid.py:660-725``).  Cells go through the cameras
+        in chunks of ``chunk``, so that the ``(cameras, 3, chunk)``
+        projections stay small with many cameras; ``K`` and ``c2w`` are
+        moved to the state's device.  :meth:`_update` never raises a -1
+        cell again."""
+        device = state.occs.device
+        K = torch.as_tensor(K, dtype=torch.float32).to(device)
+        c2w = torch.as_tensor(c2w, dtype=torch.float32).to(device)
+        assert K.ndim == 3 and K.shape[1:] == (3, 3)
+        assert c2w.ndim == 3 and c2w.shape[1] in (3, 4)
+        w2c_R = c2w[:, :3, :3].transpose(1, 2)  # (N, 3, 3)
+        w2c_T = -w2c_R @ c2w[:, :3, 3:]  # (N, 3, 1)
+        ry, rz = self.resolution[1], self.resolution[2]
+        res_minus1 = torch.tensor(
+            [r - 1 for r in self.resolution], dtype=torch.float32, device=device
+        )
+        cells = self.cells_per_lvl
+        occs = state.occs.clone()
+        for lvl in range(self.levels):
+            aabb = state.aabbs[lvl]
+            for lo in range(0, cells, chunk):
+                idx = torch.arange(lo, min(lo + chunk, cells), device=device)
+                coords = torch.stack([idx // (ry * rz), (idx // rz) % ry, idx % rz], dim=-1)
+                x = coords.to(torch.float32) / res_minus1  # (chunk, 3) in [0, 1]
+                xyzs_w = (aabb[:3] + x * (aabb[3:] - aabb[:3])).T  # (3, chunk)
+                uvd = K @ (w2c_R @ xyzs_w + w2c_T)  # (N, 3, chunk)
+                uv = uvd[:, :2] / uvd[:, 2:]
+                in_image = (
+                    (uvd[:, 2] >= 0)
+                    & (uv[:, 0] >= 0) & (uv[:, 0] < width)
+                    & (uv[:, 1] >= 0) & (uv[:, 1] < height)
+                )
+                covered = ((uvd[:, 2] >= near_plane) & in_image).any(dim=0)
+                too_near = ((uvd[:, 2] < near_plane) & in_image).any(dim=0)
+                visible = covered & ~too_near
+                occs[lvl * cells + idx] = torch.where(visible, 0.0, -1.0)
+        return state.replace(occs=occs)
 
     def _resolution_tensor(self, device: torch.device) -> Tensor:
         """``(3,)`` float32 resolution on ``device``, made once per device (a

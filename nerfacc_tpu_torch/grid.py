@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,6 +70,18 @@ def _enlarge_aabb(aabb: Tensor, factor: float) -> Tensor:
     return torch.cat([center - extent * factor, center + extent * factor])
 
 
+def _geometric(t_at_sw: Tensor, steps: Tensor, cone_angle: float) -> Tensor:
+    """``t_at_sw * (1 + cone_angle) ** steps``, the geometric ladder.  The
+    power is taken in float64 and rounded to ``t_at_sw``'s dtype: in float32,
+    CUDA's ``pow`` and the CPU's differ in the last bit of about one value
+    in fifteen, and the two devices would then march other samples, while
+    both round the float64 power to the same float32.  The base is ``1 +
+    cone_angle`` in float32 and the product is taken in float32, as the JAX
+    package takes them."""
+    base = float(np.float32(1.0 + cone_angle))
+    return t_at_sw * torch.pow(base, steps.double()).to(t_at_sw.dtype)
+
+
 def _march_ladder(
     near: Tensor, n_edges: int, step_size: float, cone_angle: float
 ) -> Tensor:
@@ -80,7 +93,7 @@ def _march_ladder(
     k_sw = torch.ceil((t_switch - near).clamp(min=0.0) / step_size)
     t_lin = near[..., None] + k * step_size
     t_at_sw = near + k_sw * step_size
-    t_geo = t_at_sw[..., None] * torch.pow(1.0 + cone_angle, k - k_sw[..., None])
+    t_geo = _geometric(t_at_sw[..., None], k - k_sw[..., None], cone_angle)
     return torch.where(k <= k_sw[..., None], t_lin, t_geo)
 
 
@@ -94,7 +107,7 @@ def _ladder_at(near: Tensor, k: Tensor, step_size: float, cone_angle: float) -> 
     k_sw = torch.ceil((t_switch - near).clamp(min=0.0) / step_size)
     t_lin = near + kf * step_size
     t_at_sw = near + k_sw * step_size
-    t_geo = t_at_sw * torch.pow(1.0 + cone_angle, kf - k_sw)
+    t_geo = _geometric(t_at_sw, kf - k_sw, cone_angle)
     return torch.where(kf <= k_sw, t_lin, t_geo)
 
 

@@ -1,5 +1,5 @@
-"""Packing helpers: ``ray_indices`` to ``packed_info``, and count-based
-compaction of row-prefix-valid layouts.
+"""Packing helpers: ``ray_indices`` to ``packed_info``, batched to flat
+layouts, and compaction of valid flat samples to a fixed capacity.
 
 Port of ``nerfacc_tpu/pack.py:24-114``.
 """
@@ -12,7 +12,7 @@ import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["pack_info", "compact_indices_from_counts"]
+__all__ = ["pack_info", "flatten_batched", "compact_flat", "compact_indices_from_counts"]
 
 
 def pack_info(
@@ -31,6 +31,28 @@ def pack_info(
     if is_valid is not None:
         cnts = torch.zeros_like(all_cnts).index_add_(0, ri, is_valid.long())
     return torch.stack([starts, cnts], dim=-1).to(torch.int32)
+
+
+def flatten_batched(*vals: Tensor) -> Tuple[Tensor, ...]:
+    """Flatten ``(n_rays, S, ...)`` tensors to ``(n_rays * S, ...)`` and
+    append the row-major ``ray_indices`` (int32)."""
+    n_rays, s = vals[0].shape[:2]
+    ray_indices = torch.arange(
+        n_rays, dtype=torch.int32, device=vals[0].device
+    ).repeat_interleave(s)
+    flat = tuple(v.reshape((n_rays * s,) + tuple(v.shape[2:])) for v in vals)
+    return flat + (ray_indices,)
+
+
+def compact_flat(is_valid: Tensor, capacity: int) -> Tuple[Tensor, Tensor]:
+    """``(gather_idx (capacity,), kept (capacity,))`` that move the valid
+    flat samples to the front, in order: a stable argsort of ``~is_valid``,
+    cut to ``capacity``.  ``kept`` marks the slots that hold a valid
+    sample."""
+    order = torch.argsort((~is_valid).to(torch.int8), stable=True)
+    gather_idx = order[:capacity]
+    kept = torch.arange(capacity, device=is_valid.device) < is_valid.sum()
+    return gather_idx, kept
 
 
 def compact_indices_from_counts(

@@ -7,7 +7,9 @@ Port of ``nerfacc_tpu/rendering.py:38-53,101-278,281-416``.
 compaction into a fixed sample capacity
 (:func:`~nerfacc_tpu_torch.grid.traverse_and_compact`), the field on the
 flat samples, and differentiable volume rendering with the sorted
-``seg_bounds`` accumulation.
+``seg_bounds`` accumulation; optionally a visibility filter (a density
+pass without gradients, in its own ``visibility`` range) ahead of the
+field, and a second compaction of the survivors (``refilter_capacity``).
 
 :func:`occgrid_render_rays_test` is the iterative alive-ray
 renderer (Instant-NGP style).  Each round traverses a bounded window of
@@ -37,7 +39,12 @@ from torch.profiler import record_function
 from .estimators.occ_grid import OccGridEstimator, OccGridState
 from .grid import num_ladder_steps, traverse_grids
 from .pack import compact_indices_from_counts
-from .volrend import accumulate_along_rays, render_weight_from_density, rendering
+from .volrend import (
+    accumulate_along_rays,
+    render_visibility_from_density,
+    render_weight_from_density,
+    rendering,
+)
 
 Tensor = torch.Tensor
 
@@ -53,7 +60,7 @@ def gather_ray_od(
 
 def occgrid_render_rays(
     rgb_sigma_fn: Callable,  # (t_starts, t_ends, ray_indices) -> (rgb, sigma)
-    sigma_fn: Optional[Callable],
+    sigma_fn: Optional[Callable],  # the same arguments -> sigma
     estimator: OccGridEstimator,
     state: OccGridState,
     rays_o: Tensor,
@@ -65,12 +72,14 @@ def occgrid_render_rays(
     render_bkgd: Optional[Tensor] = None,
     cone_angle: float = 0.0,
     alpha_thre: float = 0.0,
+    early_stop_eps: float = 1e-4,
     stratified: bool = False,
     jitter: Optional[Tensor] = None,
     generator: Optional[torch.Generator] = None,
     max_samples_per_ray: Optional[int] = None,
     sample_capacity: Optional[int] = None,
     max_macro_segments: int = 24,
+    refilter_capacity: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, dict]:
     """Render a ray batch for training (``rendering.py:101-278``).
 
@@ -80,14 +89,18 @@ def occgrid_render_rays(
     ``macro_truncated_frac`` to :func:`~nerfacc_tpu_torch.volrend.rendering`'s.
     With ``stratified``, each ray's near plane moves by ``jitter *
     render_step_size`` (``jitter`` an ``(n_rays,)`` tensor in ``[0, 1)``, or
-    drawn from ``generator``).  As in the JAX package, ``sigma_fn`` is only
-    used for the visibility filter at ``alpha_thre > 0``, which is not
-    ported yet (nor is ``refilter_capacity``).
+    drawn from ``generator``).
+
+    ``sigma_fn`` runs only for the visibility filter, when ``alpha_thre >
+    0`` or ``refilter_capacity`` is set (``rendering.py:196-249``): a density
+    pass without gradients drops the samples whose transmittance is below
+    ``early_stop_eps`` or whose alpha is below ``min(alpha_thre,
+    mean(state.occs))``.  With ``refilter_capacity`` the surviving samples
+    are compacted again into that many slots, so the differentiable pass
+    runs on fewer samples; that layout is no longer sorted by ray (its
+    padding decodes to the first slot's ray), so the per-ray sums take
+    ``index_add_``.
     """
-    if alpha_thre > 0.0 and sigma_fn is not None:
-        raise NotImplementedError(
-            "occgrid_render_rays: the alpha_thre > 0 visibility filter is not ported yet"
-        )
     n_rays = rays_o.shape[0]
     with record_function("traverse_and_compact"):
         cs = estimator.compact_samples(
@@ -97,26 +110,52 @@ def occgrid_render_rays(
             max_samples=max_samples_per_ray, sample_capacity=sample_capacity,
             max_macro_segments=max_macro_segments,
         )
+    ray_indices, t_starts, t_ends, kept = cs.ray_indices, cs.t_starts, cs.t_ends, cs.kept
+    seg_bounds = (cs.seg_starts, cs.seg_counts)
+    if sigma_fn is not None and (alpha_thre > 0.0 or refilter_capacity):
+        with record_function("visibility"), torch.no_grad():
+            sigmas = torch.where(kept, sigma_fn(t_starts, t_ends, ray_indices), 0.0)
+            masks = render_visibility_from_density(
+                t_starts, t_ends, sigmas, ray_indices=ray_indices,
+                early_stop_eps=early_stop_eps,
+                alpha_thre=state.occs.mean().clamp(max=alpha_thre),
+            )
+            kept = kept & masks
+            t_ends = torch.where(kept, t_ends, t_starts)
+            if refilter_capacity:
+                # The samples are sorted by ray, so a survivor's slot is the
+                # count of survivors before it.  Dropped and overflowing
+                # samples all write the spare last slot, which is cut off.
+                slot = torch.cumsum(kept, 0) - 1
+                slot = torch.where(kept, slot, refilter_capacity).clamp(max=refilter_capacity)
+                src = torch.zeros(refilter_capacity + 1, dtype=torch.int64, device=kept.device)
+                src = src.scatter_(0, slot, torch.arange(kept.shape[0], device=kept.device))
+                src = src[:refilter_capacity]
+                total = kept.sum()
+                ray_indices, t_starts, t_ends = ray_indices[src], t_starts[src], t_ends[src]
+                kept = torch.arange(refilter_capacity, device=kept.device) < total
+                t_ends = torch.where(kept, t_ends, t_starts)
+                seg_bounds = None
     # The field runs in its own range, before rendering, so that a profile
     # tells the two apart.
     with record_function("field_forward"):
-        field_out = rgb_sigma_fn(cs.t_starts, cs.t_ends, cs.ray_indices)
+        field_out = rgb_sigma_fn(t_starts, t_ends, ray_indices)
     with record_function("rendering"):
         colors, opacities, depths, extras = rendering(
-            cs.t_starts,
-            cs.t_ends,
-            ray_indices=cs.ray_indices,
+            t_starts,
+            t_ends,
+            ray_indices=ray_indices,
             n_rays=n_rays,
             rgb_sigma_fn=lambda *_: field_out,
             render_bkgd=render_bkgd,
-            is_valid=cs.kept,
-            seg_bounds=(cs.seg_starts, cs.seg_counts),
+            is_valid=kept,
+            seg_bounds=seg_bounds,
         )
     extras = dict(extras)
-    extras["kept"] = cs.kept
-    extras["ray_indices"] = cs.ray_indices
+    extras["kept"] = kept
+    extras["ray_indices"] = ray_indices
     extras["macro_truncated_frac"] = cs.macro_truncated.float().mean()
-    return colors, opacities, depths, cs.kept.sum(), extras
+    return colors, opacities, depths, kept.sum(), extras
 
 
 @torch.no_grad()

@@ -19,8 +19,8 @@ not inherit rounding error from the segments before it:
 
 Gradients come from autograd through these forms; for the flat sums they
 are the reversed segmented sums the JAX package writes by hand
-(``scan.py:142-179``).  The exact gradient of a product at a zero
-(``scan.py:182-190``) is not ported.
+(``scan.py:142-179``).  The product scan only multiplies, so its autograd
+gradient is exact at a zero too (``tests/test_scan.py:86``).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ of the rest come from autograd, through the float64 segmented sums of
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -27,6 +27,8 @@ __all__ = [
     "render_transmittance_from_density",
     "render_weight_from_alpha",
     "render_weight_from_density",
+    "render_visibility_from_alpha",
+    "render_visibility_from_density",
     "accumulate_along_rays",
 ]
 
@@ -94,6 +96,44 @@ def render_weight_from_density(
         t_starts, t_ends, sigmas, packed_info, ray_indices, n_rays, prefix_trans
     )
     return trans * alphas, trans, alphas
+
+
+def render_visibility_from_alpha(
+    alphas: Tensor,
+    packed_info: Optional[Tensor] = None,
+    ray_indices: Optional[Tensor] = None,
+    n_rays: Optional[int] = None,
+    early_stop_eps: float = 1e-4,
+    alpha_thre: Union[float, Tensor] = 0.0,
+    prefix_trans: Optional[Tensor] = None,
+) -> Tensor:
+    """``vis = (T >= early_stop_eps) & (alpha >= alpha_thre)``
+    (``volrend.py:117-139``).  ``alpha_thre`` may be a 0-d tensor on the
+    device (the estimator ties it to the grid's mean occupancy), so it is
+    applied unconditionally; at 0 it keeps every non-negative alpha."""
+    trans = render_transmittance_from_alpha(
+        alphas, packed_info, ray_indices, n_rays, prefix_trans
+    )
+    return (trans >= early_stop_eps) & (alphas >= alpha_thre)
+
+
+def render_visibility_from_density(
+    t_starts: Tensor,
+    t_ends: Tensor,
+    sigmas: Tensor,
+    packed_info: Optional[Tensor] = None,
+    ray_indices: Optional[Tensor] = None,
+    n_rays: Optional[int] = None,
+    early_stop_eps: float = 1e-4,
+    alpha_thre: Union[float, Tensor] = 0.0,
+    prefix_trans: Optional[Tensor] = None,
+) -> Tensor:
+    """:func:`render_visibility_from_alpha` from densities
+    (``volrend.py:142-159``)."""
+    trans, alphas = render_transmittance_from_density(
+        t_starts, t_ends, sigmas, packed_info, ray_indices, n_rays, prefix_trans
+    )
+    return (trans >= early_stop_eps) & (alphas >= alpha_thre)
 
 
 def accumulate_along_rays(

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6, and the wrappers'
-refusals.  Needs an NVIDIA
+K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6, the wrappers'
+refusals, and the visibility filter (the volrend functions and the
+training renderer) against the CPU.  Needs an NVIDIA
 GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
 imports JAX, hence ``--noconftest``)::
 
@@ -580,3 +581,190 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         with pytest.raises(RuntimeError, match="table_grad_w8_launch: CUDA error"):
             tg._launch(tg._table_grad_lib(), "table_grad_w8_launch", (idx, perm, torch.zeros((8, 8), device=cuda,
                        dtype=dtype), dd), 16, bf, span=tg.K4_TILE[dtype] // 2)
+
+
+# The visibility filter on the card (the unbounded train step and its eval
+# render): visibility masks may differ from the CPU's only where the CPU's
+# alpha lies within 1e-5 (relative) and two alpha steps of the threshold, or
+# its transmittance within 1e-5 of early_stop_eps, since exp and the sums
+# differ in their last bits.  alpha = 1 - exp(-sigma dt) moves in steps of
+# 2^-24, the spacing of float32 values just below 1.
+
+
+def _flip_allowed(trans, alphas, thre, eps):
+    return ((alphas - thre).abs() <= 1e-5 * thre + 2 * 2.0**-24) | ((trans - eps).abs() <= 1e-5)
+
+
+@pytest.mark.cuda
+def test_visibility_functions_on_the_card_match_the_cpu(cuda):
+    from nerfacc_tpu_torch import volrend
+
+    rng = np.random.default_rng(21)
+    counts = rng.integers(0, 200, 2000)
+    ri = torch.from_numpy(np.repeat(np.arange(2000), counts).astype(np.int32))
+    n = ri.shape[0]
+    t0 = torch.from_numpy(np.sort(rng.random(n, dtype=np.float32)))
+    t1 = t0 + torch.from_numpy(rng.random(n, dtype=np.float32) * 0.02)
+    sigmas = torch.from_numpy(rng.random(n, dtype=np.float32) * 20.0)
+    thre, eps = 0.05, 1e-3
+    want = volrend.render_visibility_from_density(t0, t1, sigmas, ray_indices=ri, early_stop_eps=eps, alpha_thre=thre)
+    got = volrend.render_visibility_from_density(
+        t0.to(cuda), t1.to(cuda), sigmas.to(cuda), ray_indices=ri.to(cuda), early_stop_eps=eps,
+        alpha_thre=torch.tensor(thre, device=cuda),
+    ).cpu()
+    trans, alphas = volrend.render_transmittance_from_density(t0, t1, sigmas, ray_indices=ri)
+    differ = got != want
+    assert not (differ & ~_flip_allowed(trans, alphas, thre, eps)).any()
+    assert 0 < int(want.sum()) < n
+    alphas = alphas.clamp(max=0.99)
+    want = volrend.render_visibility_from_alpha(alphas, ray_indices=ri, early_stop_eps=eps, alpha_thre=thre)
+    got = volrend.render_visibility_from_alpha(alphas.to(cuda), ray_indices=ri.to(cuda), early_stop_eps=eps,
+                                               alpha_thre=thre).cpu()
+    trans = volrend.render_transmittance_from_alpha(alphas, ray_indices=ri)
+    assert not ((got != want) & ~_flip_allowed(trans, alphas, thre, eps)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refilter", [None, 1 << 13], ids=["mask", "refilter"])
+def test_render_with_visibility_filter_on_the_card_matches_the_cpu(cuda, refilter):
+    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays
+
+    est = OccGridEstimator(roi_aabb=[-1.0] * 3 + [1.0] * 3, resolution=32, levels=1)
+    rng = np.random.default_rng(22)
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = torch.from_numpy(-2.0 * d), torch.from_numpy(d)
+
+    def density(x):
+        return 40.0 * torch.sigmoid((0.5 - x.norm(dim=-1)) * 40.0)
+
+    state_cpu = est._update(est.init("cpu"), 0, lambda x: density(x)[:, None] * 0.02,
+                            generator=torch.Generator().manual_seed(0))
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        ro, rd = o.to(device), d.to(device)
+        st = state_cpu.replace(**{k: getattr(state_cpu, k).to(device) for k in
+                                  ("aabbs", "occs", "binaries", "binaries_packed", "skip_grid", "skip_packed")})
+        passes = []
+
+        def points(ts, te, ri):
+            oo, dd = gather_ray_od(ro, rd, ri)
+            return oo + ((ts + te) / 2)[:, None] * dd
+
+        def sigma_fn(ts, te, ri):
+            s = density(points(ts, te, ri))
+            passes.append((ts.cpu(), te.cpu(), ri.cpu(), s.cpu()))
+            return s
+
+        def rgb_sigma_fn(ts, te, ri):
+            x = points(ts, te, ri)
+            return torch.sigmoid(3.0 * x), density(x)
+
+        c, op, _, n, extras = occgrid_render_rays(
+            rgb_sigma_fn, sigma_fn, est, st, ro, rd, near_plane=0.5, far_plane=4.0, render_step_size=1e-2,
+            alpha_thre=1e-3, early_stop_eps=1e-2, sample_capacity=512 * 128, refilter_capacity=refilter,
+            render_bkgd=torch.ones(3, device=device),
+        )
+        out.append((c.cpu(), op.cpu(), int(n), extras["kept"].cpu(), passes[0]))
+    (c_g, op_g, n_g, k_g, p_g), (c_c, op_c, n_c, k_c, p_c) = out
+    assert torch.equal(p_g[2], p_c[2]) and torch.equal(p_g[1] > p_g[0], p_c[1] > p_c[0])
+    from nerfacc_tpu_torch.volrend import render_transmittance_from_density
+
+    ts, te, ri, s = p_c
+    assert 0 < n_c < int((te > ts).sum())
+    if refilter:
+        # The survivors, compacted again: the same count and layout.
+        assert n_g == n_c and torch.equal(k_g, k_c)
+    else:
+        trans, alphas = render_transmittance_from_density(ts, te, torch.where(te > ts, s, 0.0), ray_indices=ri)
+        thre = min(1e-3, float(state_cpu.occs.mean()))
+        differ = k_g != k_c
+        assert not (differ & ~_flip_allowed(trans, alphas, thre, 1e-2)).any()
+        if differ.any():
+            return
+    # atol 1e-4: the card sums in another order (phase 4 of chip_smoke.py).
+    assert float((c_g - c_c).abs().max()) <= 1e-4 and float((op_g - op_c).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k1_on_four_level_cone_traversal(cuda, monkeypatch):
+    # The unbounded configuration's queries: 4 levels of 128^3, the
+    # geometric ladder at cone 0.004 with its four skip probes a segment.
+    import nerfacc_tpu_torch.grid as grid_mod
+    from nerfacc_tpu_torch.ops.occ_query import _query_soa
+
+    est = OccGridEstimator(roi_aabb=[-1.0] * 3 + [1.0] * 3, resolution=128, levels=4, skip_factor=2)
+    rng = np.random.default_rng(23)
+    state = est.set_binaries(est.init(cuda), torch.from_numpy(rng.random((4, 128, 128, 128)) < 0.1))
+    o = rng.normal(size=(2048, 3))
+    o /= np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (2048, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    calls = []
+
+    def recording(packed, aabb, px, py, pz, rz, mip_pad=0):
+        calls.append((packed, aabb, (px, py, pz), rz, mip_pad))
+        return occupancy_query(packed, aabb, px, py, pz, rz=rz, mip_pad=mip_pad)
+
+    monkeypatch.setattr(grid_mod, "occupancy_query", recording)
+    cs = est.compact_samples(
+        state, torch.from_numpy(o.astype(np.float32)).to(cuda), torch.from_numpy(d.astype(np.float32)).to(cuda),
+        near_plane=0.2, render_step_size=1e-3, cone_angle=0.004, sample_capacity=1 << 18,
+    )
+    assert int(cs.kept.sum()) > 0
+    assert [(c[0] is state.skip_packed, c[4]) for c in calls] == [(True, 1), (False, 0)]
+    for packed, aabb, pts, rz, mip_pad in calls:
+        out = occupancy_query(packed, aabb, *pts, rz=rz, mip_pad=mip_pad)
+        grid = state.skip_grid if mip_pad else state.binaries
+        ref, _ = _query_soa(*pts, grid, aabb, mip_pad=mip_pad)
+        torch.cuda.synchronize()
+        assert torch.equal(out, occupancy_query_plain(packed, aabb, *pts, rz=rz, mip_pad=mip_pad))
+        assert torch.equal(out, ref)
+        assert 0 < int(out.sum()) < out.numel()
+
+
+@pytest.mark.cuda
+def test_k3_at_four_levels_of_128_cubed(cuda):
+    # One post-warm-up update of a 4-level 128^3 grid: 2^20 draws a level
+    # into 2^23 cells, K3 once a level, bit for bit the CPU's update.
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, cell_max_plain
+
+    est = OccGridEstimator(roi_aabb=[-1.0] * 3 + [1.0] * 3, resolution=128, levels=4)
+    rng = np.random.default_rng(24)
+    binaries = torch.from_numpy(rng.random((4, 128, 128, 128)) < 0.08)
+    occs = torch.from_numpy(rng.random(1 << 23, dtype=np.float32) * 0.02)
+    draws = est.make_draws(10**9, torch.Generator().manual_seed(4), device="cpu")
+
+    def occ_eval_fn(x):
+        return x[:, :1].abs() * 1e-3
+
+    res = []
+    for device in (cuda, torch.device("cpu")):
+        st = est.set_binaries(est.init(device), binaries.to(device)).replace(occs=occs.to(device))
+        before = cell_max.launches
+        new = est._update(st, 10**9, occ_eval_fn, draws=draws)
+        res.append((new.occs.cpu(), new.binaries.cpu(), cell_max.launches - before))
+    (occ_g, bin_g, launched), (occ_c, bin_c, _) = res
+    assert launched == 4
+    assert torch.equal(occ_g, occ_c) and torch.equal(bin_g, bin_c)
+    ids = torch.from_numpy(rng.integers(0, 1 << 23, 1 << 20).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random(1 << 20, dtype=np.float32) * 4e-3).to(cuda)
+    got = cell_max(ids, vals, 1 << 23)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), cell_max_plain(ids, vals, 1 << 23).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_geometric_ladder_is_the_same_on_the_card_and_the_cpu(cuda):
+    # The cone ladder of the unbounded configuration: the card must march
+    # the CPU's t values bit for bit, or a sample can cross a cell face on
+    # one side only.
+    from nerfacc_tpu_torch.grid import _ladder_at, _march_ladder
+
+    rng = np.random.default_rng(25)
+    near = torch.from_numpy((0.2 + rng.random((4096, 1)) * 1e-3).astype(np.float32))
+    k = torch.arange(1235, dtype=torch.int32)[None]
+    want = _ladder_at(near, k, 1e-3, 0.004)
+    got = _ladder_at(near.to(cuda), k.to(cuda), 1e-3, 0.004).cpu()
+    assert torch.equal(got, want)
+    assert torch.equal(_march_ladder(near[:, 0].to(cuda), 1235, 1e-3, 0.004).cpu(), want)

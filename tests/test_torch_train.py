@@ -4,7 +4,17 @@ small size, with the fused encoder and with the grouped tcnn-shape one),
 each against the JAX package on the same inputs.
 
 The train step draws its stratified jitter from a ``jax.random`` key as
-``rendering.py:137-142`` does; the same numbers go to the port.
+``rendering.py:137-142`` does; the same numbers go to the port.  The
+unbounded (Mip-NeRF 360) step adds the visibility filter: 4 grid levels,
+the geometric ladder at ``cone_angle`` 0.004, ``alpha_thre`` 1e-2 against
+occupancies from one JAX update, and the contracted field.  There the
+ladder's power differs from XLA's by an ulp or two, and the exp of each
+package by an ulp, so a sample whose alpha lies within 1e-5 (relative) and
+two alpha steps of the threshold (alpha = 1 - exp(-sigma dt) moves in
+steps of 2^-24, the spacing of float32 values just below 1), or whose
+transmittance lies within 1e-5 of ``early_stop_eps``, may be kept on one
+side only; every other sample must agree, and the test prints how many are
+that close.
 """
 
 import jax
@@ -22,12 +32,13 @@ from nerfacc_tpu.models.ngp import NGPRadianceField as JField
 from nerfacc_tpu.rendering import occgrid_render_rays as j_render
 from nerfacc_tpu.volrend import rendering as j_rendering
 from nerfacc_tpu_torch import scan as tscan
-from nerfacc_tpu_torch.convert import field_from_jax
+from nerfacc_tpu_torch.convert import field_from_jax, occ_state_from_jax
 from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator as TEstimator
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField as TField
 from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10, table_grad_w3
 from nerfacc_tpu_torch.rendering import gather_ray_od
 from nerfacc_tpu_torch.rendering import occgrid_render_rays as t_render
+from nerfacc_tpu_torch.volrend import render_transmittance_from_density
 from nerfacc_tpu_torch.volrend import rendering as t_rendering
 
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
@@ -139,47 +150,68 @@ def _train_setup(cdt, enc=FUSED):
 STEP, N_RAYS, CAP = 0.02, 128, 4096
 
 
-def _jax_step(est, state, field, params, rays_o, rays_d, pixels, key):
+# The step of bench.py's configuration; the unbounded one adds its own.
+BENCH_KW = dict(near_plane=0.0, render_step_size=STEP, sample_capacity=CAP, max_macro_segments=4)
+
+
+def _jax_step(est, state, field, params, rays_o, rays_d, pixels, key, render_kw=BENCH_KW, with_sigma=False,
+              jit=False):
     tx = optax.adam(1e-2, eps=1e-15)
     od = jnp.concatenate([rays_o, rays_d], axis=-1)
 
     def loss_fn(p):
-        def rgb_sigma_fn(ts, te, ri):
+        def points(ts, te, ri):
             g = jnp.take(od, ri, axis=0)
             o, d = g[:, :3], g[:, 3:]
-            rgb, sigma = field.apply(p, o + ((ts + te) / 2)[:, None] * d, d)
+            return o + ((ts + te) / 2)[:, None] * d, d
+
+        def rgb_sigma_fn(ts, te, ri):
+            x, d = points(ts, te, ri)
+            rgb, sigma = field.apply(p, x, d)
             return rgb, sigma[..., 0]
 
-        colors, _, _, n_samp, _ = j_render(
-            rgb_sigma_fn, None, est, state, rays_o, rays_d, near_plane=0.0, far_plane=1e10,
-            render_step_size=STEP, render_bkgd=jnp.ones(3), stratified=True, key=key,
-            sample_capacity=CAP, max_macro_segments=4,
+        def sigma_fn(ts, te, ri):
+            return field.apply(p, points(ts, te, ri)[0], method="query_density")[..., 0]
+
+        colors, _, _, n_samp, extras = j_render(
+            rgb_sigma_fn, sigma_fn if with_sigma else None, est, state, rays_o, rays_d,
+            far_plane=1e10, render_bkgd=jnp.ones(3), stratified=True, key=key, **render_kw,
         )
-        return optax.huber_loss(colors, pixels, delta=1.0).mean(), n_samp
+        return optax.huber_loss(colors, pixels, delta=1.0).mean(), (n_samp, extras["kept"])
 
-    (loss, n_samp), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    grad_fn = jax.value_and_grad(loss_fn, has_aux=True)
+    (loss, (n_samp, kept)), grads = (jax.jit(grad_fn) if jit else grad_fn)(params)
     updates, _ = tx.update(grads, tx.init(params), params)
-    return float(loss), int(n_samp), grads, optax.apply_updates(params, updates)
+    return float(loss), int(n_samp), grads, optax.apply_updates(params, updates), np.asarray(kept)
 
 
-def _torch_step(est, state, field, rays_o, rays_d, pixels, jitter):
+def _torch_step(est, state, field, rays_o, rays_d, pixels, jitter, render_kw=BENCH_KW, with_sigma=False):
     opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+    seen = []
+
+    def points(ts, te, ri):
+        o, d = gather_ray_od(rays_o, rays_d, ri)
+        return o + ((ts + te) / 2)[:, None] * d, d
 
     def rgb_sigma_fn(ts, te, ri):
-        o, d = gather_ray_od(rays_o, rays_d, ri)
-        rgb, sigma = field(o + ((ts + te) / 2)[:, None] * d, d)
+        rgb, sigma = field(*points(ts, te, ri))
         return rgb, sigma[..., 0]
 
+    def sigma_fn(ts, te, ri):
+        sigma = field.query_density(points(ts, te, ri)[0])[..., 0]
+        seen.append((ts, te, ri, sigma))
+        return sigma
+
     colors, _, _, n_samp, extras = t_render(
-        rgb_sigma_fn, None, est, state, rays_o, rays_d, near_plane=0.0, far_plane=1e10,
-        render_step_size=STEP, render_bkgd=torch.ones(3), stratified=True, jitter=jitter,
-        sample_capacity=CAP, max_macro_segments=4,
+        rgb_sigma_fn, sigma_fn if with_sigma else None, est, state, rays_o, rays_d,
+        far_plane=1e10, render_bkgd=torch.ones(3), stratified=True, jitter=jitter, **render_kw,
     )
     loss = Fn.huber_loss(colors, pixels, delta=1.0)
     opt.zero_grad()
     loss.backward()
     grads = {k: v.grad.clone() for k, v in field.named_parameters()}
     opt.step()
+    extras = dict(extras, density_pass=seen)
     return float(loss.detach()), int(n_samp), grads, extras
 
 
@@ -202,7 +234,7 @@ def _check_one_train_step(cdt, enc):
     key = jax.random.PRNGKey(1)
     jitter = np.array(jax.random.uniform(jax.random.split(key)[1], (N_RAYS,), jnp.float32))
 
-    loss_j, n_j, grads_j, params_j = _jax_step(
+    loss_j, n_j, grads_j, params_j, _ = _jax_step(
         est_j, js, jfield, params, jnp.asarray(o), jnp.asarray(d), jnp.asarray(pixels), key
     )
     before = table_grad_u10.launches, table_grad_w3.launches, table_grad_pos.launches
@@ -218,6 +250,10 @@ def _check_one_train_step(cdt, enc):
     # bf16 products at other places, 2e-2 of the largest value
     # (tests/test_models.py:549).
     rel = 1e-4 if cdt is None else 2e-2
+    _compare_step(loss_t, loss_j, grads_t, grads_j, params_j, tfield, rel)
+
+
+def _compare_step(loss_t, loss_j, grads_t, grads_j, params_j, tfield, rel):
     assert loss_t == pytest.approx(loss_j, rel=rel)
 
     want_grads = field_from_jax(jax.tree_util.tree_map(np.asarray, grads_j))
@@ -238,3 +274,67 @@ def _check_one_train_step(cdt, enc):
         p_got = new_params[name].detach().numpy()
         np.testing.assert_allclose(p_got[held], want_params[name].numpy()[held], rtol=0, atol=1e-6, err_msg=name)
     assert np.abs(want_grads["encoder.table"].numpy()).max() > 0
+
+
+# examples/train_ngp_nerf_occ.py:62-71 (Mip-NeRF 360 scenes) at a small size:
+# a 4-level grid of 32^3 over +-1, the unbounded field on the outer box +-8.
+UNBOUNDED_KW = dict(
+    near_plane=0.2, render_step_size=1e-3, cone_angle=0.004, alpha_thre=1e-2,
+    sample_capacity=4096, max_macro_segments=24,
+)
+
+
+def test_one_unbounded_train_step_matches_jax():
+    # The JAX step is jitted: eager, it takes a minute here.  Under jit XLA
+    # fuses the jittered near plane into a multiply-add, another last-bit
+    # difference in t that the threshold rule above covers.
+    roi = [-1.0] * 3 + [1.0] * 3
+    est_j, est_t = JEstimator(roi, 32, 4, 2), TEstimator(roi, 32, 4, 2)
+    aabb = tuple(float(v) for v in est_j._aabbs_np[-1])
+    cfg = dict(FUSED, log2_hashmap_size=12, mlp_width=16, geo_feat_dim=15, unbounded=True)
+    jfield = JField(aabb=aabb, compute_dtype=None, table_grad="factor", **cfg)
+    params = jfield.init(jax.random.PRNGKey(0), jnp.zeros((8, 3)), jnp.zeros((8, 3)))
+    tfield = TField(aabb=aabb, compute_dtype=None, device="cpu", **cfg)
+    tfield.load_state_dict(field_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    # Occupancies from one warm-up update of the JAX estimator on this field,
+    # as the example's occ_update computes them.
+    js = jax.jit(lambda st: est_j._update(
+        st, step=0, key=jax.random.PRNGKey(2), warmup_steps=1,
+        occ_eval_fn=lambda x: jfield.apply(params, x, method="query_density") * 1e-3,
+    ))(est_j.init())
+    ts = occ_state_from_jax(est_t, js, device="cpu")
+    thre = min(1e-2, float(ts.occs.mean()))
+    assert thre > 0
+
+    # Origins on the unit sphere, each aimed at a point in +-0.5.
+    rng = np.random.default_rng(5)
+    n_rays = 64
+    o = rng.normal(size=(n_rays, 3))
+    o /= np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    pixels = rng.random((n_rays, 3), dtype=np.float32)
+    key = jax.random.PRNGKey(1)
+    jitter = np.array(jax.random.uniform(jax.random.split(key)[1], (n_rays,), jnp.float32))
+
+    loss_j, n_j, grads_j, params_j, kept_j = _jax_step(
+        est_j, js, jfield, params, jnp.asarray(o), jnp.asarray(d), jnp.asarray(pixels), key,
+        render_kw=UNBOUNDED_KW, with_sigma=True, jit=True,
+    )
+    loss_t, n_t, grads_t, extras = _torch_step(
+        est_t, ts, tfield, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(pixels),
+        torch.from_numpy(jitter), render_kw=UNBOUNDED_KW, with_sigma=True,
+    )
+    # The samples near the filter's two thresholds, from the port's density
+    # pass (which sees the traversal's samples, t_end > t_start where kept).
+    ((t0, t1, ri, sigma),) = extras["density_pass"]
+    trans, alphas = render_transmittance_from_density(t0, t1, sigma.detach(), ray_indices=ri)
+    near = (((alphas - thre).abs() <= 1e-5 * thre + 2 * 2.0**-24) | ((trans - 1e-4).abs() <= 1e-5)).numpy()
+    differ = extras["kept"].numpy() != kept_j
+    print(f"unbounded step: kept {n_t} (JAX {n_j}), {int(near.sum())} samples at a threshold, "
+          f"{int(differ.sum())} differ")
+    assert not (differ & ~near).any()
+    assert 0 < n_t < int((t1 > t0).sum()), "the filter must drop some traversed samples"
+    # float32 tolerances of the bounded step.
+    _compare_step(loss_t, loss_j, grads_t, grads_j, params_j, tfield, 1e-4)

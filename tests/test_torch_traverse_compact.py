@@ -3,9 +3,10 @@ port against ``nerfacc_tpu.grid.traverse_and_compact`` and
 ``nerfacc_tpu.estimators.occ_grid``.
 
 Every field is held exactly: the same float32 operations run on both sides.
-The one exception is the geometric ladder's ``pow`` at ``cone_angle > 0``:
-XLA on the CPU calls the C library's ``powf`` and PyTorch its own vectorised
-``pow``, which differ by one ulp on about one value in fifty, so there the t
+The one exception is the geometric ladder's power at ``cone_angle > 0``:
+XLA on the CPU calls the C library's ``powf``, and the port rounds a float64
+power to float32 (so that the card and the CPU agree); the ladders differ
+by up to two ulps on about one value in three hundred, so there the t
 values are held to two ulps (rtol 2.4e-7) and every other field exactly.
 """
 
