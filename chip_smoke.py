@@ -6,8 +6,8 @@
 
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
-ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phase 10
-none):
+ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10
+and 11 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -71,6 +71,22 @@ none):
    1024 rays and a 64x64 eval crop on the card against the CPU, where
    visibility masks may differ only at threshold-adjacent samples.  Needs
    no other phase.
+11. train and eval, proposal network: the Mip-NeRF 360 block of
+   ``examples/train_ngp_nerf_prop.py:67-74,107-131`` (two ``NGPDensityField``
+   proposal nets at max resolution 128 and 256, 5 levels, F = 2, proposal
+   samples (256, 96), 48 final samples, lindisp from 0.2 to 1e3, an opaque
+   background; the contracted radiance field L8 x F16, float32; 4096 rays);
+   3 warm-up steps (one with a proposal update, one without, then the
+   cadence's step 1000) and 30 timed steps at the proposal cadence from
+   step 1001 (one update in six): rays/s, radiance samples/s, step ms, each variant
+   (``requires_grad`` True and False) timed alone, peak memory, first and
+   last loss and proposal loss, exactly one K4-w3 launch a step and no other
+   kernel; K4-w3 on one step's own inputs, timed beside its bound; a profile
+   window (``prop_sampling``, ``field_forward``, ``gather_combine``,
+   ``rendering``, ``prop_loss``, ``table_grad``); one 800x800 eval view
+   (``requires_grad=False``, 8192-ray chunks); one step at 1024 rays on the
+   card against the CPU, in stages (sampling given the card's densities, the
+   step on the card's samples, the chained step).  Needs no other phase.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -126,6 +142,21 @@ UNB_RAYS, UNB_CAPACITY, UNB_CHUNK = 8192, 1 << 18, 8192
 # The state is built as the example's loop builds it: one warm-up update of
 # every cell, then rounds of 16 steps and a post-warm-up update.
 UNB_STATE_ROUNDS = 2
+# Phase 11: the unbounded block of examples/train_ngp_nerf_prop.py (:67-74,
+# 107-131): aabb +-1, lindisp from 0.2 to 1e3, proposal samples (256, 96)
+# and 48 final samples, an opaque background; two proposal nets (5 levels,
+# F = 2, log2_hashmap_size 17, max_resolution 128 and 256) and the radiance
+# field at its fused default (FIELD_CFG), all contracted, float32; 4096 rays
+# a step (:98), the eval in 8192-ray chunks (:206-223).  The timed steps
+# start at step 1000 of the proposal cadence: one update in six.
+PROP_AABB = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
+PROP_RENDER_KW = dict(
+    num_samples=48, prop_samples=(256, 96), near_plane=0.2, far_plane=1e3, sampling_type="lindisp",
+    opaque_bkgd=True,
+)
+PROP_NET_CFG = dict(n_levels=5, n_features_per_level=2, log2_hashmap_size=17, mlp_width=64)
+PROP_MAX_RES = (128, 256)
+PROP_RAYS, PROP_CHUNK, PROP_START_STEP, PROP_VARIANT_ITERS = 4096, 8192, 1000, 10
 WIDTH = HEIGHT = 800
 FOCAL = 0.5 * WIDTH / math.tan(0.5 * 0.6911112070083618)  # lego's camera_angle_x
 CROP = 64
@@ -799,7 +830,7 @@ def hold_step(label, a, b, tol, mlp_tol, what) -> None:
     """One train step on the card (``a``) against the CPU (``b``), each a
     dict of the kept-sample count ``n``, the ``loss``, the ``grads`` and the
     ``params`` after Adam: equal counts, the loss within ``tol`` relative,
-    the table's gradient within ``tol`` and the others within ``mlp_tol`` of
+    every hash table's gradient within ``tol`` and the others within ``mlp_tol`` of
     their largest value, the parameters held where the gradients' signs
     agree."""
     if a["n"] != b["n"]:
@@ -1283,6 +1314,387 @@ def train_unbounded(dev) -> dict:
     return dict(launches=launches, k1=k1, k3=k3)
 
 
+def prop_models(dev, weights=None):
+    """Phase 11's fields: the radiance field (``FIELD_CFG``, float32,
+    contracted) and the two proposal nets, random weights from seed 0 in the
+    example's order (``train_ngp_nerf_prop.py:107-131``), or ``weights``
+    (one state dict a model)."""
+    from nerfacc_tpu_torch.models.ngp import NGPDensityField, NGPRadianceField
+
+    gen = torch.Generator().manual_seed(0)
+    field = NGPRadianceField(aabb=PROP_AABB, unbounded=True, compute_dtype=None, device=dev, generator=gen,
+                             **FIELD_CFG)
+    nets = [NGPDensityField(aabb=PROP_AABB, unbounded=True, max_resolution=mr, device=dev, generator=gen,
+                            **PROP_NET_CFG) for mr in PROP_MAX_RES]
+    if weights is not None:
+        for model, w in zip([field] + nets, weights):
+            model.load_state_dict({k: v.to(dev) for k, v in w.items()})
+    return field, nets
+
+
+def prop_render(field, nets, rays_o, rays_d, record=None, **kw):
+    """``propnet_render_rays`` with the example's field callbacks
+    (``train_ngp_nerf_prop.py:133-159``) and ``PROP_RENDER_KW``; with a list
+    ``record``, each proposal level appends its densities."""
+    from nerfacc_tpu_torch.estimators.prop_net import PropNetEstimator
+    from nerfacc_tpu_torch.rendering import propnet_render_rays
+
+    def points(ts, te):
+        return rays_o[:, None] + ((ts + te) / 2.0)[..., None] * rays_d[:, None]
+
+    def rgb_sigma_fn(ts, te):
+        x = points(ts, te)
+        rgb, sigma = field(x, rays_d[:, None].expand(x.shape))
+        return rgb, sigma[..., 0]
+
+    def prop_fn(net):
+        def sigma_fn(ts, te):
+            sigma = net(points(ts, te))[..., 0]
+            if record is not None:
+                record.append(sigma.detach())
+            return sigma
+
+        return sigma_fn
+
+    return propnet_render_rays(
+        rgb_sigma_fn, [prop_fn(net) for net in nets], PropNetEstimator(), rays_o, rays_d,
+        render_bkgd=torch.ones(3, device=rays_o.device), **PROP_RENDER_KW, **kw,
+    )
+
+
+def prop_step(field, nets, opts, rays_o, rays_d, pixels, requires_grad, record=None, **draw_kw):
+    """One step of the example's loop (``train_ngp_nerf_prop.py:161-188``):
+    render, Huber loss plus the proposal loss, one backward, the field's
+    Adam, and the proposal nets' Adam only when ``requires_grad`` (their
+    gradients are cleared to None every step).  Returns the loss, the
+    proposal loss and the renderer's extras."""
+    from nerfacc_tpu_torch.estimators.prop_net import PropNetEstimator
+    from torch.profiler import record_function
+
+    colors, _, _, extras = prop_render(field, nets, rays_o, rays_d, record, stratified=True,
+                                       requires_grad=requires_grad, **draw_kw)
+    loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
+    with record_function("prop_loss"):
+        prop_loss = PropNetEstimator().compute_loss(extras["prop_cache"], extras["trans"])
+    opt_field, opt_prop = opts
+    opt_field.zero_grad(set_to_none=True)
+    opt_prop.zero_grad(set_to_none=True)
+    with record_function("backward"):
+        (loss + prop_loss).backward()
+    with record_function("optimizer"):
+        opt_field.step()
+        if requires_grad:
+            opt_prop.step()
+    return loss.detach(), prop_loss.detach(), extras
+
+
+def prop_optimizers(field, nets):
+    return (torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15),
+            torch.optim.Adam([p for net in nets for p in net.parameters()], lr=1e-2, eps=1e-15))
+
+
+def prop_state(field, nets) -> dict:
+    """Gradients and parameters of the field and the proposal nets (the
+    nets' names prefixed ``prop<i>.``), on the CPU."""
+    named = list(field.named_parameters())
+    named += [(f"prop{i}.{k}", v) for i, net in enumerate(nets) for k, v in net.named_parameters()]
+    return dict(
+        grads={k: v.grad.detach().cpu() for k, v in named if v.grad is not None},
+        params={k: v.detach().cpu() for k, v in named},
+    )
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float32 steps between ``a`` and ``b``
+    (finite, same sign)."""
+    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+# Given the same densities, the card's exp and cumsum put each level's cdf
+# an ulp or two (of 1) from the CPU's, and resampling scales that by the
+# inverse cdf's slope, the width of a bin in s over its mass: s values 1.01e-6
+# apart were measured on the card test's 64 bins (tests/test_torch_cuda.py),
+# so atol 1e-5 (PERF.md §6, PR 10).
+PROP_S_ATOL = 1e-5
+# The chained card and CPU steps resample from densities a few ulps apart
+# (PERF.md §6, PR 10), and their s values drift apart level by level (up
+# to 5.64e-4 at the last).  The loss is held to rtol 1e-3, as the
+# JAX-against-port step on the CPU (2.52e-6 to 6.02e-5 over seven runs).
+# The proposal loss follows the edges themselves, which bins each envelope
+# covers: 5.70e-5 to 9.35e-4 over seven runs whose trained weights differ
+# in their last bits (the card's backward adds in no fixed order), so
+# rtol 1e-2.
+PROP_CHAINED_RTOL, PROP_CHAINED_PROP_RTOL = 1e-3, 1e-2
+
+
+def prop_card_vs_cpu(dev, weights) -> None:
+    """One prop step at 1024 rays on the card and on the CPU, from the same
+    weights and draws, ``requires_grad=True``, held in stages: the s values
+    of every level given the card's densities (``PROP_S_ATOL``); the step
+    on the card's samples (the t ladder to 0 ulps, phase 8's float32
+    tolerances on the gradients and the parameters after Adam, the
+    proposal nets' tables at the MLPs' 3e-4: their gradients come through
+    the proposal loss, whose terms cancel, and autograd's scatter, 1.39e-4
+    measured in tests/test_torch_cuda.py); the chained CPU step (finite,
+    losses within ``PROP_CHAINED_RTOL`` and ``PROP_CHAINED_PROP_RTOL``)."""
+    import nerfacc_tpu_torch.estimators.prop_net as prop_mod
+    from nerfacc_tpu_torch.data_specs import RayIntervals, RaySamples
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    cpu = torch.device("cpu")
+    n_rays = 1024
+    n_levels = len(PROP_RENDER_KW["prop_samples"])
+    rng = np.random.default_rng(4)
+    rays_o, rays_d, pixels = unbounded_rays(rng, n_rays, cpu)
+    jitter = [torch.from_numpy(rng.random((n_rays, 1), dtype=np.float32)) for _ in range(n_levels + 1)]
+    sampling = prop_mod.importance_sampling
+    wrappers = ("table_grad_u10", "table_grad_w3", "table_grad_w8", "table_grad_sorted", "table_grad_pos")
+
+    def step_on(device, replay=None):
+        field, nets = prop_models(device, weights)
+        edges, record = [], []
+
+        def recording(*a, **k):
+            intervals, samples = sampling(*a, **k)
+            edges.append(intervals.vals.detach().cpu())
+            return intervals, samples
+
+        def replayed(*a, **k):
+            s_vals = replay[len(edges)].to(device)
+            edges.append(s_vals.cpu())
+            return RayIntervals(vals=s_vals), RaySamples(vals=(s_vals[:, 1:] + s_vals[:, :-1]) / 2)
+
+        for w in wrappers:
+            getattr(tg, w).launches = 0
+        prop_mod.importance_sampling = recording if replay is None else replayed
+        t0 = time.perf_counter()
+        try:
+            loss, prop_loss, extras = prop_step(
+                field, nets, prop_optimizers(field, nets), rays_o.to(device), rays_d.to(device),
+                pixels.to(device), True, record, jitter=[j.to(device) for j in jitter],
+            )
+        finally:
+            prop_mod.importance_sampling = sampling
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            used = {w: getattr(tg, w).launches for w in wrappers}
+            want = {w: int(w == "table_grad_w3") for w in wrappers}
+            if used != want:
+                fail(f"card vs CPU (prop): table-gradient launches {used}, expected {want}")
+        return dict(
+            loss=float(loss), prop_loss=float(prop_loss), n=int(extras["t_starts"].numel()), edges=edges,
+            densities=[r.cpu() for r in record], t=extras["t_starts"].detach().cpu(),
+            s=time.perf_counter() - t0, **prop_state(field, nets),
+        )
+
+    a = step_on(dev)
+    # 1. Sampling on the CPU given the card's densities.
+    fed = iter(a["densities"])
+    _, _, cache = prop_mod.PropNetEstimator().sampling(
+        [lambda ts, te: next(fed)] * n_levels, list(PROP_RENDER_KW["prop_samples"]),
+        PROP_RENDER_KW["num_samples"], n_rays, PROP_RENDER_KW["near_plane"], PROP_RENDER_KW["far_plane"],
+        PROP_RENDER_KW["sampling_type"], stratified=True, requires_grad=True, jitter=jitter, device=cpu,
+    )
+    s_err = [float((c[0] - e).abs().max()) for c, e in zip(cache, a["edges"])]
+    print(f"card vs CPU prop sampling given the card's densities: s max abs err by level {s_err} "
+          f"(atol {PROP_S_ATOL})", flush=True)
+    if max(s_err) > PROP_S_ATOL:
+        fail(f"card vs CPU prop sampling: s values {s_err} beyond atol {PROP_S_ATOL}")
+    # 2. The step on the card's samples.
+    b = step_on(cpu, replay=a["edges"])
+    ulps = ulps_apart(a["t"], b["t"])
+    print(f"card vs CPU prop t ladder on the same s: {ulps} ulps apart at most", flush=True)
+    if ulps > 0:
+        fail(f"card vs CPU prop: the lindisp t ladder differs by {ulps} ulps on the same s")
+    hold_step("prop float32", a, b, 1e-4, 3e-4, f"{n_rays} rays, {PROP_RENDER_KW['num_samples']} samples a ray")
+    if abs(a["prop_loss"] - b["prop_loss"]) > 1e-4 * abs(b["prop_loss"]):
+        fail(f"card vs CPU prop: proposal loss {a['prop_loss']} vs {b['prop_loss']}")
+    # 3. The chained CPU step.
+    c = step_on(cpu)
+    finite = all(bool(torch.isfinite(v).all()) for v in list(c["params"].values()) + [c["t"]])
+    s_chain = [float((x - y).abs().max()) for x, y in zip(a["edges"], c["edges"])]
+    t_rel = float(((a["t"] - c["t"]) / c["t"]).abs().max())
+    loss_rel = abs(a["loss"] - c["loss"]) / abs(c["loss"])
+    prop_rel = abs(a["prop_loss"] - c["prop_loss"]) / max(abs(c["prop_loss"]), 1e-30)
+    print(f"card vs CPU prop chained step: s max abs err by level {s_chain}, t max rel err {t_rel:.3e}, "
+          f"loss {a['loss']:.7f} vs {c['loss']:.7f} (rel {loss_rel:.2e}), proposal loss {a['prop_loss']:.7e} vs "
+          f"{c['prop_loss']:.7e} (rel {prop_rel:.2e}); CPU step {c['s']:.1f} s", flush=True)
+    if not finite or not math.isfinite(c["loss"]):
+        fail("card vs CPU prop chained step: a value is not finite")
+    if loss_rel > PROP_CHAINED_RTOL or prop_rel > PROP_CHAINED_PROP_RTOL:
+        fail(f"card vs CPU prop chained step: losses beyond rtol {PROP_CHAINED_RTOL} (loss) or "
+             f"{PROP_CHAINED_PROP_RTOL} (proposal loss)")
+
+
+def k4_on_prop_inputs(step) -> dict:
+    """K4-w3 against its plain version on the table-gradient inputs of one
+    prop step (the radiance field's sorted rows, fractions and cotangent),
+    recorded as the fused encoder's backward passes them; then its time,
+    the plain version's, and the bytes and operations of its bound (as
+    phase 5 counts them)."""
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    kernel, calls = tg.table_grad_w3, []
+
+    def recording(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    # The wrapper counts its launches under its module name, now this one's.
+    recording.launches = 0
+    tg.table_grad_w3 = recording
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        tg.table_grad_w3 = kernel
+        kernel.launches += recording.launches
+    if len(calls) != 1:
+        fail(f"K4-w3 on the prop step: expected one call, saw {len(calls)}")
+    args = calls[0]
+    got, want = kernel(*args), tg.table_grad_w3_plain(*args)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    n_sl, n_rows = args[0].numel(), args[-1]
+    untouched = torch.bincount(args[0].long(), minlength=n_rows) == 0
+    print(f"K4-w3 on the prop step: {n_sl} sample-levels over {n_rows} rows, {int((~untouched).sum())} rows "
+          f"named, max abs err {err:.3e} against plain (largest row sum {scale:.3e})", flush=True)
+    if not err <= 1e-5 * scale:
+        fail(f"K4-w3 disagrees with its plain version on the prop step: {err} > 1e-5 * {scale}")
+    if bool(got[untouched].any()):
+        fail("K4-w3 wrote rows that no sample names on the prop step")
+    o = dict(err=err, ms=time_ms(lambda: kernel(*args)), plain_ms=time_ms(lambda: tg.table_grad_w3_plain(*args),
+                                                                          calls=5),
+             bytes=n_sl * (4 + 3 * 4 + 4 * 16) + n_rows * 128 * 4, ops=n_sl * 128 * 2)
+    bound = o["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"K4-w3 on the prop step: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+          f"({o['bytes']} B at 3.35 TB/s), {100 * bound / o['ms']:.1f}% of bound", flush=True)
+    return o
+
+
+def train_prop(dev) -> dict:
+    """Phase 11: the Mip-NeRF 360 proposal-network train step at full width
+    (``PROP_*``), timed at the steady cadence of proposal updates, each
+    variant timed alone; K4-w3 on the step's own inputs; a profile window;
+    one 800x800 eval view; then one step card against CPU.  Returns K4-w3's
+    launches on the train path and its numbers on the step's inputs."""
+    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
+    from nerfacc_tpu_torch.datasets.utils import generate_rays
+    from nerfacc_tpu_torch.estimators.prop_net import get_proposal_requires_grad_fn
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+
+    t_phase = time.perf_counter()
+    field, nets = prop_models(dev)
+    opts = prop_optimizers(field, nets)
+    rays_o, rays_d, pixels = unbounded_rays(np.random.default_rng(0), PROP_RAYS, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    requires_grad_fn = get_proposal_requires_grad_fn()
+    for step_no in range(PROP_START_STEP):  # the cadence's state at step 1000
+        requires_grad_fn(step_no)
+    counted = {"K4-w3": tg.table_grad_w3, "K2": tg.table_grad_u10, "K1": occupancy_query, "K3": tg.cell_max,
+               "K6": tg.table_grad_pos, "K4-w8": tg.table_grad_w8, "K5": tg.table_grad_sorted}
+
+    def step(requires_grad):
+        return prop_step(field, nets, opts, rays_o, rays_d, pixels, requires_grad, generator=gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    losses, prop_losses = [], []
+    # Warm-up: one step of each variant (the first proposal update creates
+    # its Adam state and its backward's buffers), then the cadence's.
+    for rg in (True, False, requires_grad_fn(PROP_START_STEP)):
+        loss, prop_loss, _ = step(rg)
+        losses.append(loss)
+        if rg:
+            prop_losses.append(prop_loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cadence = [requires_grad_fn(PROP_START_STEP + 1 + i) for i in range(TRAIN_ITERS)]
+    for rg in cadence:
+        loss, prop_loss, _ = step(rg)
+        losses.append(loss)
+        if rg:
+            prop_losses.append(prop_loss)
+    torch.cuda.synchronize()
+    step_time = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    variant_ms = {}
+    for rg in (True, False):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PROP_VARIANT_ITERS):
+            step(rg)
+        torch.cuda.synchronize()
+        variant_ms[rg] = (time.perf_counter() - t1) / PROP_VARIANT_ITERS * 1e3
+    n_steps = 3 + TRAIN_ITERS
+    rays_s = PROP_RAYS * TRAIN_ITERS / step_time
+    print(
+        f"train prop (unbounded, float32): {rays_s:.1f} rays/s, "
+        f"{rays_s * PROP_RENDER_KW['num_samples']:.1f} radiance samples/s, step {step_time / TRAIN_ITERS * 1e3:.2f} ms "
+        f"({sum(cadence)} of {TRAIN_ITERS} timed steps update the proposal nets); alone: requires_grad True "
+        f"{variant_ms[True]:.2f} ms, False {variant_ms[False]:.2f} ms a step; launches "
+        + " ".join(f"{k} {v}" for k, v in launches.items())
+        + f" ({n_steps} steps), max_memory_allocated {peak} B, loss first {float(losses[0]):.6f} last "
+        f"{float(losses[-1]):.6f}, proposal loss first {float(prop_losses[0]):.6e} last {float(prop_losses[-1]):.6e}",
+        flush=True,
+    )
+    if not all(math.isfinite(float(x)) for x in losses + prop_losses):
+        fail("train prop: a loss is not finite")
+    want = dict.fromkeys(counted, 0)
+    want["K4-w3"] = n_steps
+    if launches != want:
+        fail(f"train prop: launches {launches}, expected {want}")
+    k4 = k4_on_prop_inputs(lambda: step(True))
+
+    def steps():  # one proposal update and two steps without, as the cadence runs
+        for rg in (True, False, False):
+            step(rg)
+
+    profile_window(
+        steps,
+        ("prop_sampling", "field_forward", "gather_combine", "rendering", "prop_loss", "backward", "table_grad",
+         "optimizer"),
+        "train prop float32 (3 steps, one proposal update)", "profile_train_prop.txt",
+    )
+
+    # The eval view (train_ngp_nerf_prop.py:191-197, :206-223): a camera at
+    # radius 1, 8192-ray chunks, the last padded with its last ray.
+    c2w = pose_spherical(math.radians(-30.0), math.radians(-30.0), 1.0)[:3, :4]
+    K = np.array([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]], np.float32)
+    xs, ys = np.meshgrid(np.arange(WIDTH), np.arange(HEIGHT), indexing="xy")
+    rays = generate_rays(xs, ys, K, c2w, device=dev)
+    o, d = rays.origins.reshape(-1, 3), rays.viewdirs.reshape(-1, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = []
+    with torch.no_grad():
+        for j in range(0, o.shape[0], PROP_CHUNK):
+            oc, dc = o[j : j + PROP_CHUNK], d[j : j + PROP_CHUNK]
+            n_real = oc.shape[0]
+            if n_real < PROP_CHUNK:
+                oc = torch.cat([oc, oc[-1:].expand(PROP_CHUNK - n_real, 3)])
+                dc = torch.cat([dc, dc[-1:].expand(PROP_CHUNK - n_real, 3)])
+            colors, _, _, _ = prop_render(field, nets, oc, dc, stratified=False, requires_grad=False)
+            imgs.append(colors[:n_real])
+    img = torch.cat(imgs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"eval prop: {WIDTH * HEIGHT} rays in {dt:.3f} s = {WIDTH * HEIGHT / dt:.1f} rays/s, "
+          f"{WIDTH * HEIGHT * PROP_RENDER_KW['num_samples']} radiance samples", flush=True)
+    if not bool(torch.isfinite(img).all()) or not (0.0 <= float(img.min()) and float(img.max()) <= 1.0 + 1e-6):
+        fail("eval prop: the image is not finite or outside [0, 1]")
+
+    weights = [{k: v.detach().clone() for k, v in m.state_dict().items()} for m in [field] + nets]
+    prop_card_vs_cpu(dev, weights)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches["K4-w3"], k4=k4)
+
+
 def k1_render_inputs(dev, rng) -> tuple:
     """K1 at the render shape: the estimator and its state on the shell,
     the level-0 box, and 4096 rays x a 256-step window of query positions,
@@ -1489,7 +1901,7 @@ def serve(dev, est, state, crop: bool) -> None:
         fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -1583,6 +1995,10 @@ def main(argv=None) -> None:
     if 10 in run:
         unb = train_unbounded(dev)
 
+    # ---- 11. train and eval, the proposal-network path --------------------
+    if 11 in run:
+        prop = train_prop(dev)
+
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
         # K1's launches here are the fused train path's (phase 6); the serve
@@ -1619,6 +2035,11 @@ def main(argv=None) -> None:
             kernel_row("cell_max_unbounded", src + "cell_max.cu", tg_py + "1918", unb["launches"]["K3"],
                        unb["k3"]["err"], unb["k3"]["ms"], unb["k3"]["plain_ms"], unb["k3"]["bytes"],
                        unb["k3"]["ops"], unb["k3"]["library_ms"]),
+            # K4-w3 again on the proposal-network train path (phase 11), on
+            # one step's own inputs.
+            kernel_row("table_grad_w3_prop", src + "table_grad.cu", tg_py + "572", prop["launches"],
+                       prop["k4"]["err"], prop["k4"]["ms"], prop["k4"]["plain_ms"], prop["k4"]["bytes"],
+                       prop["k4"]["ops"], None),
         ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

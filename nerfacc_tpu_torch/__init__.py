@@ -18,7 +18,12 @@ tcnn-shape encoder
 (:class:`~nerfacc_tpu_torch.models.hash_soa.HashGridEncoderGrouped`), and
 the visibility filter that the unbounded (Mip-NeRF 360) configuration turns
 on (``alpha_thre``, ``refilter_capacity``, ``sampling(sigma_fn=)``,
-``mark_invisible_cells``).
+``mark_invisible_cells``); and the proposal-network path
+(:mod:`~nerfacc_tpu_torch.data_specs`, :mod:`~nerfacc_tpu_torch.pdf`,
+:class:`~nerfacc_tpu_torch.estimators.prop_net.PropNetEstimator`,
+:class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField` and
+:func:`~nerfacc_tpu_torch.rendering.propnet_render_rays`), whose train step
+takes the radiance field's table gradient through the same kernels.
 """
 
 __version__ = "0.1.0"

@@ -17,8 +17,10 @@ from .estimators.occ_grid import OccGridEstimator, OccGridState
 
 def field_from_jax(params: Mapping) -> dict:
     """``state_dict`` for :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`
-    from the flax parameters of ``nerfacc_tpu.models.ngp.NGPRadianceField``
-    (fused encoder), with or without the outer ``{"params": ...}`` level.
+    or :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField` from the flax
+    parameters of the JAX package's class of the same name (fused or
+    grouped encoder; a density field has ``mlp_base`` only), with or without
+    the outer ``{"params": ...}`` level.
 
     flax ``Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights are their
     transpose.  flax names the dense layers of ``nn.Sequential`` by their

@@ -1,7 +1,8 @@
-"""Instant-NGP radiance field: a hash grid plus two small MLPs.
+"""Instant-NGP fields: a hash grid plus small MLPs.
 
-Port of ``nerfacc_tpu/models/ngp.py:39-254`` for the fused and grouped
-encoders (``encoder_type``).
+Port of ``nerfacc_tpu/models/ngp.py:39-304``: the radiance field with the
+fused or grouped encoder (``encoder_type``), and the proposal nets' density
+field with the fused encoder.
 Parameters are initialised as flax initialises them (``lecun_normal``
 kernels, i.e. a normal truncated at two standard deviations; zero biases;
 the table uniform in ``[0, 2e-4)``) from a ``torch.Generator`` on the CPU, so
@@ -19,7 +20,7 @@ what ``chip_smoke.py`` sets); TF32 would keep about three decimal digits.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +50,40 @@ def trunc_exp(x: Tensor) -> Tensor:
     return _TruncExp.apply(x)
 
 
+def contract_tanh(x: Tensor, aabb: Tensor) -> Tensor:
+    """Per-axis tanh contraction to ``[0, 1]^3`` (``ngp.py:56-62``); the box
+    maps to ``[0.5 - tanh(0.5) / 2, 0.5 + tanh(0.5) / 2]^3``."""
+    u = (x - aabb[..., :3]) / (aabb[..., 3:] - aabb[..., :3]) - 0.5
+    return torch.tanh(u) * 0.5 + 0.5
+
+
+def contract_tanh_inv(x: Tensor, aabb: Tensor) -> Tensor:
+    """Inverse of :func:`contract_tanh` (``ngp.py:65-69``)."""
+    u = torch.atanh((x * 2.0 - 1.0).clamp(-1.0 + 1e-7, 1.0 - 1e-7))
+    return (u + 0.5) * (aabb[..., 3:] - aabb[..., :3]) + aabb[..., :3]
+
+
+def _norm3(x: Tensor) -> Tensor:
+    """``|x|`` over the last axis of 3, ``keepdim``, as XLA and PyTorch's CPU
+    norm round it: ``sqrt(fma(z, z, fma(y, y, x * x)))`` in float32, each
+    step correctly rounded.  Each fused multiply-add is a float64 multiply
+    and add rounded to float32 (the same result but where the float64 sum
+    falls on a float32 tie), and the root is taken in float64 and rounded,
+    so the card, whose norm reduction rounds otherwise, gets the CPU's
+    value bit for bit: one ulp there moves a contracted position across a
+    cell face of the fused encoder, whose features jump there."""
+    xd = x.double()
+    acc = (xd[..., 0:1] * xd[..., 0:1]).float()
+    for i in (1, 2):
+        acc = (xd[..., i : i + 1] * xd[..., i : i + 1] + acc.double()).float()
+    return torch.sqrt(acc.double()).float()
+
+
 def contract_to_unisphere(x: Tensor, aabb: Tensor, eps: float = 1e-6) -> Tensor:
     """MipNeRF-360 scene contraction of ``(..., 3)`` points to ``[0, 1]^3``."""
     x = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
     x = x * 2 - 1  # aabb at [-1, 1]
-    mag = torch.linalg.vector_norm(x, ord=2, dim=-1, keepdim=True).clamp(min=eps)
+    mag = _norm3(x).clamp(min=eps)
     contracted = (2 - 1 / mag) * (x / mag)
     x = torch.where(mag > 1, contracted, x)
     return x / 4 + 0.5
@@ -72,6 +102,39 @@ def _lecun_linear(
         )
         layer.bias.zero_()
     return layer
+
+
+def _mlp(seq: nn.Sequential, h: Tensor, cdt: Optional[torch.dtype]) -> Tensor:
+    """``seq(h)``, with each layer in ``cdt`` if one is set (flax
+    ``nn.Dense(dtype=cdt)`` on float32 parameters)."""
+    if cdt is None:
+        return seq(h)
+    h = h.to(cdt)
+    for layer in seq:
+        if isinstance(layer, nn.Linear):
+            h = F.linear(h, layer.weight.to(cdt), layer.bias.to(cdt))
+        else:
+            h = layer(h)
+    return h
+
+
+def _density(h: Tensor, selector: Tensor) -> Tensor:
+    """``trunc_exp(h - 1)`` in float32 where ``selector``, else 0.  The JAX
+    package writes ``trunc_exp(h - 1) * selector``, which XLA turns into a
+    select, so a density that overflows to inf outside the box is 0 there,
+    not inf * 0 = NaN."""
+    return torch.where(selector[..., None], trunc_exp(h.to(torch.float32) - 1), 0.0)
+
+
+def _unit_box(x: Tensor, aabb: Tensor, unbounded: bool) -> Tuple[Tensor, Tensor]:
+    """Positions mapped to the encoder's ``[0, 1]^3`` (through the scene
+    contraction when ``unbounded``) and the mask of those strictly
+    inside."""
+    if unbounded:
+        u = contract_to_unisphere(x, aabb)
+    else:
+        u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
+    return u, ((u > 0.0) & (u < 1.0)).all(dim=-1)
 
 
 class NGPRadianceField(nn.Module):
@@ -152,31 +215,13 @@ class NGPRadianceField(nn.Module):
     def query_density(self, x: Tensor, return_feat: bool = False):
         """Density ``(..., 1)`` (and geometry features) at positions
         ``(..., 3)``; zero outside the box."""
-        aabb = self.aabb
-        if self.unbounded:
-            u = contract_to_unisphere(x, aabb)
-        else:
-            u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
-        selector = ((u > 0.0) & (u < 1.0)).all(dim=-1)
-        h = self._mlp(self.mlp_base, self.encoder(u))
+        u, selector = _unit_box(x, self.aabb, self.unbounded)
+        h = _mlp(self.mlp_base, self.encoder(u), self.compute_dtype)
         density_before, feat = h[..., :1], h[..., 1:]
-        density = trunc_exp(density_before.to(torch.float32) - 1) * selector[..., None]
+        density = _density(density_before, selector)
         if return_feat:
             return density, feat
         return density
-
-    def _mlp(self, seq: nn.Sequential, h: Tensor) -> Tensor:
-        """``seq(h)``, with each layer in the compute dtype if one is set."""
-        cdt = self.compute_dtype
-        if cdt is None:
-            return seq(h)
-        h = h.to(cdt)
-        for layer in seq:
-            if isinstance(layer, nn.Linear):
-                h = F.linear(h, layer.weight.to(cdt), layer.bias.to(cdt))
-            else:
-                h = layer(h)
-        return h
 
     def _query_rgb(self, direction: Optional[Tensor], embedding: Tensor) -> Tensor:
         if self.use_viewdirs and direction is not None:
@@ -184,8 +229,67 @@ class NGPRadianceField(nn.Module):
             h = torch.cat([sh, embedding], dim=-1)
         else:
             h = embedding
-        return torch.sigmoid(self._mlp(self.mlp_head, h).to(torch.float32))
+        return torch.sigmoid(_mlp(self.mlp_head, h, self.compute_dtype).to(torch.float32))
 
     def forward(self, positions: Tensor, directions: Optional[Tensor] = None):
         density, embedding = self.query_density(positions, return_feat=True)
         return self._query_rgb(directions, embedding), density
+
+
+class NGPDensityField(nn.Module):
+    """Density-only hash-grid field of a proposal level (``ngp.py:256-304``):
+    ``forward(positions (..., 3))`` returns densities ``(..., 1)``, zero
+    outside the box (or the contracted sphere when ``unbounded``).
+
+    Its encoder is the fused one, ``2^(log2_hashmap_size - 3)`` rows a level
+    of 8 corners each.  The rows are ``8 * n_features_per_level`` wide, 16
+    at the default F = 2, and only 128-wide rows have a table-gradient
+    kernel, so autograd differentiates the row gather, as the JAX package's
+    autodiff does for these nets (its factor and Pallas routes need
+    ``8 F == 128``, ``hash_soa.py:275-280``).
+    """
+
+    def __init__(
+        self,
+        aabb: Sequence[float],
+        unbounded: bool = False,
+        base_resolution: int = 16,
+        max_resolution: int = 128,
+        n_levels: int = 5,
+        n_features_per_level: int = 2,
+        log2_hashmap_size: int = 17,
+        mlp_width: int = 64,
+        *,
+        compute_dtype: Optional[torch.dtype] = None,
+        device: Union[str, torch.device] = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.compute_dtype = None if compute_dtype == torch.float32 else compute_dtype
+        self.unbounded = unbounded
+        self.register_buffer(
+            "aabb",
+            torch.tensor(list(aabb), dtype=torch.float32, device=device),
+            persistent=False,  # configuration, not a weight
+        )
+        self.encoder = HashGridEncoderFused(
+            n_levels=n_levels,
+            n_features_per_level=n_features_per_level,
+            log2_hashmap_size=log2_hashmap_size - 3,
+            base_resolution=base_resolution,
+            max_resolution=max_resolution,
+            compute_dtype=compute_dtype,
+            device=device,
+            generator=generator,
+        )
+        self.mlp_base = nn.Sequential(
+            _lecun_linear(self.encoder.latent_dim, mlp_width, generator),
+            nn.ReLU(),
+            _lecun_linear(mlp_width, 1, generator),
+        ).to(device)
+
+    def forward(self, positions: Tensor) -> Tensor:
+        u, selector = _unit_box(positions, self.aabb, self.unbounded)
+        h = _mlp(self.mlp_base, self.encoder(u), self.compute_dtype)
+        return _density(h, selector)

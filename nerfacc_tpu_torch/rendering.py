@@ -1,7 +1,7 @@
-"""Occupancy-grid renderers: the training renderer and the inference
-renderer.
+"""Render drivers: the occupancy-grid training and inference renderers, and
+the proposal-network renderer.
 
-Port of ``nerfacc_tpu/rendering.py:38-53,101-278,281-416``.
+Port of ``nerfacc_tpu/rendering.py:38-53,101-278,281-475``.
 
 :func:`occgrid_render_rays` is the training path: one fused traversal and
 compaction into a fixed sample capacity
@@ -19,6 +19,10 @@ the transmittance carried over from earlier rounds.  A ray stops when its
 opacity passes ``1 - early_stop_eps`` or its termination plane reaches the
 far plane, and the loop stops after ``max_samples`` per ray.
 
+:func:`propnet_render_rays` resamples each ray through the proposal
+levels (:class:`~nerfacc_tpu_torch.estimators.prop_net.PropNetEstimator`)
+and renders the final batched samples.
+
 Eager PyTorch has dynamic shapes, so each round's compaction capacity is
 ``n_alive * samples_per_round`` rather than one of the JAX package's fixed
 capacity buckets.  The result does not depend on it: no round can hold more
@@ -31,12 +35,13 @@ profiler a range costs a few microseconds of host time per round.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from .estimators.occ_grid import OccGridEstimator, OccGridState
+from .estimators.prop_net import PropNetEstimator
 from .grid import num_ladder_steps, traverse_grids
 from .pack import compact_indices_from_counts
 from .volrend import (
@@ -264,3 +269,65 @@ def occgrid_render_rays_test(
         rgb = rgb + render_bkgd * (1.0 - opacity)
     depth = depth / opacity.clamp(min=torch.finfo(dtype).eps)
     return rgb, opacity, depth, int(total_samples)
+
+
+def propnet_render_rays(
+    rgb_sigma_fn: Callable,  # batched (t_starts, t_ends) -> (rgb, sigma)
+    prop_sigma_fns: Sequence[Callable],
+    estimator: PropNetEstimator,
+    rays_o: Tensor,
+    rays_d: Tensor,
+    *,
+    num_samples: int = 48,
+    prop_samples: Sequence[int] = (256, 96),
+    near_plane: float = 0.2,
+    far_plane: float = 1e3,
+    sampling_type: str = "lindisp",
+    opaque_bkgd: bool = True,
+    render_bkgd: Optional[Tensor] = None,
+    stratified: bool = False,
+    requires_grad: bool = False,
+    jitter: Optional[Sequence[Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Render a ray batch through proposal-network resampling
+    (``rendering.py:419-475``, ``examples/utils.py:155-249``).
+
+    The estimator resamples ``[near_plane, far_plane]`` through
+    ``prop_sigma_fns`` (stratified offsets from ``jitter`` or ``generator``,
+    see :meth:`PropNetEstimator.sampling`) on the rays' device, the field
+    runs on the final ``(n_rays, num_samples)`` intervals, and
+    :func:`~nerfacc_tpu_torch.volrend.rendering` renders them batched.  With
+    ``opaque_bkgd`` the last interval's density is set to inf, out of place,
+    so that no gradient reaches the field there (``.at[..., -1].set(inf)``);
+    a last interval of zero width then renders NaN, as in the JAX package.
+    Returns ``(colors, opacities, depths, extras)``; ``extras`` adds
+    ``prop_cache``, ``t_starts`` and ``t_ends`` to the renderer's, and
+    ``prop_cache`` with ``extras["trans"]`` feed
+    :meth:`PropNetEstimator.compute_loss`.
+    """
+    with record_function("prop_sampling"):
+        t_starts, t_ends, cache = estimator.sampling(
+            prop_sigma_fns=prop_sigma_fns,
+            prop_samples=list(prop_samples),
+            num_samples=num_samples,
+            n_rays=rays_o.shape[0],
+            near_plane=near_plane,
+            far_plane=far_plane,
+            sampling_type=sampling_type,
+            stratified=stratified,
+            requires_grad=requires_grad,
+            jitter=jitter,
+            generator=generator,
+            device=rays_o.device,
+        )
+    with record_function("field_forward"):
+        rgb, sigma = rgb_sigma_fn(t_starts, t_ends)
+        if opaque_bkgd:
+            sigma = torch.cat([sigma[..., :-1], torch.full_like(sigma[..., -1:], float("inf"))], dim=-1)
+    with record_function("rendering"):
+        colors, opacities, depths, extras = rendering(
+            t_starts, t_ends, rgb_sigma_fn=lambda *_: (rgb, sigma), render_bkgd=render_bkgd
+        )
+    extras = dict(extras, prop_cache=cache, t_starts=t_starts, t_ends=t_ends)
+    return colors, opacities, depths, extras

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6, the wrappers'
-refusals, and the visibility filter (the volrend functions and the
-training renderer) against the CPU.  Needs an NVIDIA
+refusals, the visibility filter (the volrend functions and the
+training renderer) and the proposal-network step (its t ladder, and one
+step through K4-w3 and through K2) against the CPU.  Needs an NVIDIA
 GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
 imports JAX, hence ``--noconftest``)::
 
@@ -768,3 +769,159 @@ def test_geometric_ladder_is_the_same_on_the_card_and_the_cpu(cuda):
     got = _ladder_at(near.to(cuda), k.to(cuda), 1e-3, 0.004).cpu()
     assert torch.equal(got, want)
     assert torch.equal(_march_ladder(near[:, 0].to(cuda), 1235, 1e-3, 0.004).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling_type", ["uniform", "lindisp"])
+def test_prop_t_ladder_is_the_same_on_the_card_and_the_cpu(cuda, sampling_type):
+    # s to t, 1 / (s s_max + (1 - s) s_min) for lindisp: each operation is
+    # its own kernel, one float32 rounding each on both devices, so the
+    # card's t values are the CPU's to 0 ulps (and a position on the ray
+    # cannot cross a cell face on one side only).
+    from nerfacc_tpu_torch.estimators.prop_net import _transform_stot
+
+    s = torch.from_numpy(np.random.default_rng(26).random((4096, 257), dtype=np.float32))
+    s[:, 0], s[:, -1] = 0.0, 1.0
+    want = _transform_stot(sampling_type, s, 0.2, 1e3)
+    got = _transform_stot(sampling_type, s.to(cuda), 0.2, 1e3).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_contraction_is_the_same_on_the_card_and_the_cpu(cuda):
+    # The card's norm reduction rounds otherwise than the CPU's; the port's
+    # explicit one must give the CPU's contracted positions bit for bit.
+    from nerfacc_tpu_torch.models.ngp import contract_to_unisphere
+
+    aabb = torch.tensor([-8.0] * 3 + [8.0] * 3)
+    x = torch.from_numpy((np.random.default_rng(28).normal(size=(1 << 20, 3)) * 20).astype(np.float32))
+    want = contract_to_unisphere(x, aabb)
+    got = contract_to_unisphere(x.to(cuda), aabb.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _prop_models(device, cdt):
+    """A small prop configuration: the contracted radiance field with
+    128-wide rows (its table gradient through K4-w3 in float32, K2 in bf16)
+    and two proposal nets, one seed for both devices."""
+    from nerfacc_tpu_torch.models.ngp import NGPDensityField, NGPRadianceField
+
+    gen = torch.Generator().manual_seed(0)
+    roi = [-1.0] * 3 + [1.0] * 3
+    field = NGPRadianceField(aabb=roi, unbounded=True, compute_dtype=cdt, device=device, generator=gen,
+                             n_levels=4, n_features_per_level=16, log2_hashmap_size=16)
+    nets = [NGPDensityField(aabb=roi, unbounded=True, max_resolution=mr, compute_dtype=cdt, device=device,
+                            generator=gen, log2_hashmap_size=14) for mr in (128, 256)]
+    return field, nets
+
+
+def _prop_step(device, cdt, rays, jitter, record, replay=None):
+    """One prop train step (render, Huber loss plus the proposal loss,
+    backward, both Adams) on ``device``; ``record`` collects each
+    resampling's s edges and each level's densities, ``replay`` forces the
+    s edges.  Returns the losses, the t values and every gradient and
+    parameter after Adam, on the CPU."""
+    import nerfacc_tpu_torch.estimators.prop_net as prop_mod
+    from nerfacc_tpu_torch.data_specs import RayIntervals, RaySamples
+    from nerfacc_tpu_torch.rendering import propnet_render_rays
+
+    field, nets = _prop_models(device, cdt)
+    o, d, pixels = (x.to(device) for x in rays)
+    sampling = prop_mod.importance_sampling
+
+    def resample(*a, **k):
+        if replay is None:
+            iv, smp = sampling(*a, **k)
+        else:
+            s = replay[len(record["s"])].to(device)
+            iv, smp = RayIntervals(vals=s), RaySamples(vals=(s[:, 1:] + s[:, :-1]) / 2)
+        record["s"].append(iv.vals.detach().cpu())
+        return iv, smp
+
+    def points(ts, te):
+        return o[:, None] + ((ts + te) / 2)[..., None] * d[:, None]
+
+    def rgb_sigma_fn(ts, te):
+        x = points(ts, te)
+        rgb, sigma = field(x, d[:, None].expand(x.shape))
+        return rgb, sigma[..., 0]
+
+    def prop_fn(net):
+        def fn(ts, te):
+            sigma = net(points(ts, te))[..., 0]
+            record["sigma"].append(sigma.detach().cpu())
+            return sigma
+
+        return fn
+
+    prop_mod.importance_sampling = resample
+    try:
+        colors, _, _, extras = propnet_render_rays(
+            rgb_sigma_fn, [prop_fn(net) for net in nets], prop_mod.PropNetEstimator(), o, d, num_samples=32,
+            prop_samples=(64, 32), render_bkgd=torch.ones(3, device=device), stratified=True,
+            requires_grad=True, jitter=[j.to(device) for j in jitter],
+        )
+    finally:
+        prop_mod.importance_sampling = sampling
+    loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
+    prop_loss = prop_mod.PropNetEstimator().compute_loss(extras["prop_cache"], extras["trans"])
+    named = list(field.named_parameters())
+    named += [(f"prop{i}.{k}", v) for i, net in enumerate(nets) for k, v in net.named_parameters()]
+    opt = torch.optim.Adam([v for _, v in named], lr=1e-2, eps=1e-15)
+    (loss + prop_loss).backward()
+    grads = {k: v.grad.detach().cpu() for k, v in named}
+    opt.step()
+    return dict(loss=float(loss.detach()), prop_loss=float(prop_loss.detach()), t=extras["t_starts"].cpu(),
+                grads=grads, params={k: v.detach().cpu() for k, v in named})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt,kernel", [(None, "table_grad_w3"), (torch.bfloat16, "table_grad_u10")],
+                         ids=["f32-K4-w3", "bf16-K2"])
+def test_prop_step_on_the_card_matches_the_cpu(cuda, cdt, kernel):
+    from nerfacc_tpu_torch.estimators.prop_net import PropNetEstimator
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    rng = np.random.default_rng(27)
+    n = 256
+    o = rng.normal(size=(n, 3))
+    o /= np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = tuple(torch.from_numpy(np.asarray(a, np.float32)) for a in (o, d, rng.random((n, 3))))
+    jitter = [torch.from_numpy(rng.random((n, 1), dtype=np.float32)) for _ in range(3)]
+    wrappers = ("table_grad_u10", "table_grad_w3", "table_grad_w8", "table_grad_sorted", "table_grad_pos")
+    before = {w: getattr(tg, w).launches for w in wrappers}
+    card = {"s": [], "sigma": []}
+    a = _prop_step(cuda, cdt, rays, jitter, card)
+    torch.cuda.synchronize()
+    assert {w: getattr(tg, w).launches - before[w] for w in wrappers} == {w: int(w == kernel) for w in wrappers}
+
+    # The CPU's sampling given the card's densities: the card's exp and
+    # cumsum put a cdf an ulp or two from the CPU's, and resampling scales
+    # that by a bin's width over its mass (1.01e-6 measured): atol 1e-5.
+    fed = iter(card["sigma"])
+    _, _, cache = PropNetEstimator().sampling(
+        [lambda ts, te: next(fed)] * 2, [64, 32], 32, n, 0.2, 1e3, "lindisp", stratified=True,
+        requires_grad=True, jitter=jitter, device="cpu",
+    )
+    for got, want in zip(cache, card["s"]):
+        assert float((got[0] - want).abs().max()) <= 1e-5
+    # The step on the card's samples: float32 1e-4 of the largest gradient
+    # for the radiance field's table, 3e-4 for the MLPs (phase 8 of
+    # chip_smoke.py) and the proposal nets' tables, whose gradients come
+    # through the proposal loss, whose terms cancel, and autograd's scatter
+    # (1.39e-4 measured); bf16 2e-2 for all (tests/test_models.py:549).
+    b = _prop_step(torch.device("cpu"), cdt, rays, jitter, {"s": [], "sigma": []}, replay=card["s"])
+    assert torch.equal(a["t"], b["t"])
+    rel = 1e-4 if cdt is None else 2e-2
+    assert abs(a["loss"] - b["loss"]) <= rel * abs(b["loss"])
+    assert abs(a["prop_loss"] - b["prop_loss"]) <= rel * abs(b["prop_loss"])
+    for k, g_cpu in b["grads"].items():
+        tol = (rel if k == "encoder.table" or cdt is not None else 3e-4) * float(g_cpu.abs().max())
+        g_gpu = a["grads"][k]
+        assert float((g_gpu - g_cpu).abs().max()) <= tol, k
+        agree = torch.sign(g_gpu) == torch.sign(g_cpu)
+        assert bool((g_cpu[~agree].abs() <= tol).all()), k
+        held = agree & (g_cpu.abs() > 1e-9)
+        assert float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max()) <= 1e-6, k

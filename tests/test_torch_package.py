@@ -63,11 +63,16 @@ def test_entry_points_default_to_the_card():
     from nerfacc_tpu_torch.datasets.utils import generate_rays
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderFused, HashGridEncoderGrouped
-    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+    from nerfacc_tpu_torch.estimators.prop_net import PropNetEstimator
+    from nerfacc_tpu_torch.models.ngp import NGPDensityField, NGPRadianceField
 
     aabb = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NGPRadianceField(aabb=aabb, n_levels=2, log2_hashmap_size=12)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NGPDensityField(aabb=aabb, log2_hashmap_size=12)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PropNetEstimator().sampling([], [], 8, 4, 0.2, 1e3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HashGridEncoderFused(n_levels=2, log2_hashmap_size=9)
     with pytest.raises(RuntimeError, match="no CUDA device"):
