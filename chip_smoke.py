@@ -6,8 +6,8 @@
 
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
-ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10
-and 11 none):
+ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10,
+11 and 12 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -87,6 +87,21 @@ and 11 none):
    (``requires_grad=False``, 8192-ray chunks); one step at 1024 rays on the
    card against the CPU, in stages (sampling given the card's densities, the
    step on the card's samples, the chained step).  Needs no other phase.
+12. the first trained scene: ``bench.py``'s quality run (``QUALITY_*``)
+   through the occupancy CLI's own ``train_step`` and ``train``: the
+   textured procedural scene generated on the card at 800x800 (timed; a
+   32x32 crop of a training view within one uint8 step of the CPU), up to
+   3000 steps or 120 s of train time with an eval PSNR of the test view
+   every 250 steps (outside the clock); train seconds and steps to 33 dB
+   (or null), the final PSNR, SSIM, MS-SSIM and LPIPS (``rnd`` without a
+   weights file), kept samples/s, a late step's ms, samples per ray and the
+   occupied share at each eval, peak memory; K1 as often a step as the
+   traversal queries it and K2 once a step, each held against its plain
+   version on a late step's own inputs; the final PSNR at least 30 dB; the
+   test view served through the render CLI (rays/s on the trained grid), and
+   a checkpoint saved, restored and rendered again, within 1e-6.  Needs no
+   other phase (it prints phase 6's step and phase 3's rays/s beside its
+   own when those ran).
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -157,6 +172,19 @@ PROP_RENDER_KW = dict(
 PROP_NET_CFG = dict(n_levels=5, n_features_per_level=2, log2_hashmap_size=17, mlp_width=64)
 PROP_MAX_RES = (128, 256)
 PROP_RAYS, PROP_CHUNK, PROP_START_STEP, PROP_VARIANT_ITERS = 4096, 8192, 1000, 10
+# Phase 12: bench.py's quality run (:296-350, :497-560, :644-680), through
+# the occupancy CLI's own train_step and loop: the textured procedural scene
+# at 800x800 (36 train views, 1 test view), aabb +-1, a 64^3 single-level
+# grid, step 5e-3, 8192 rays and 8192 x 32 sample slots, macro budget 24;
+# the fused encoder L4 x F16 with 2^18 entries, bf16, table_grad="factor"
+# (K2); constant Adam (1e-2, eps 1e-15), Huber loss.  Bounded to 3000 steps
+# or 120 s of train time; an eval every 250 steps (outside the clock).
+QUALITY_SIZE, QUALITY_TRAIN_VIEWS, QUALITY_RAYS = 800, 36, 8192
+QUALITY_GRID_RES, QUALITY_STEP, QUALITY_MACRO = 64, 5e-3, 24
+QUALITY_FIELD = dict(levels=4, feats=16, log2t=18, dtype="bf16")
+QUALITY_MAX_STEPS, QUALITY_BUDGET_S, QUALITY_EVAL_EVERY = 3000, 120.0, 250
+QUALITY_TARGET_DB, QUALITY_GATE_DB = 33.0, 30.0
+QUALITY_EVAL_CHUNK, QUALITY_CROP = 8192, 32
 WIDTH = HEIGHT = 800
 FOCAL = 0.5 * WIDTH / math.tan(0.5 * 0.6911112070083618)  # lego's camera_angle_x
 CROP = 64
@@ -823,7 +851,7 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
          "table_grad", "optimizer", "occ_update"),
         f"train {what} (3 steps and 1 update)", profile_name,
     )
-    return field, launches, k1_err
+    return field, launches, k1_err, step_time / TRAIN_ITERS * 1e3
 
 
 def hold_step(label, a, b, tol, mlp_tol, what) -> None:
@@ -1527,15 +1555,17 @@ def prop_card_vs_cpu(dev, weights) -> None:
              f"{PROP_CHAINED_PROP_RTOL} (proposal loss)")
 
 
-def k4_on_prop_inputs(step) -> dict:
-    """K4-w3 against its plain version on the table-gradient inputs of one
-    prop step (the radiance field's sorted rows, fractions and cotangent),
-    recorded as the fused encoder's backward passes them; then its time,
-    the plain version's, and the bytes and operations of its bound (as
-    phase 5 counts them)."""
+def grad_kernel_on_step_inputs(label, name, step, what) -> dict:
+    """The table-gradient kernel ``ops.table_grad.<name>`` (``label`` in the
+    prints) against its plain version on the inputs of one ``step()`` (the
+    sorted rows, weights and cotangent as the fused encoder's backward
+    passes them); then its time, the plain version's, and the bytes and
+    operations of its bound, as phase 5 counts them: each input read once
+    but the sort's permutation, the table written once, a multiply and an
+    add a term."""
     from nerfacc_tpu_torch.ops import table_grad as tg
 
-    kernel, calls = tg.table_grad_w3, []
+    kernel, plain, calls = getattr(tg, name), getattr(tg, name + "_plain"), []
 
     def recording(*args):
         calls.append(args)
@@ -1543,32 +1573,32 @@ def k4_on_prop_inputs(step) -> dict:
 
     # The wrapper counts its launches under its module name, now this one's.
     recording.launches = 0
-    tg.table_grad_w3 = recording
+    setattr(tg, name, recording)
     try:
         step()
         torch.cuda.synchronize()
     finally:
-        tg.table_grad_w3 = kernel
+        setattr(tg, name, kernel)
         kernel.launches += recording.launches
     if len(calls) != 1:
-        fail(f"K4-w3 on the prop step: expected one call, saw {len(calls)}")
+        fail(f"{label} on {what}: expected one call, saw {len(calls)}")
     args = calls[0]
-    got, want = kernel(*args), tg.table_grad_w3_plain(*args)
+    got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     n_sl, n_rows = args[0].numel(), args[-1]
     untouched = torch.bincount(args[0].long(), minlength=n_rows) == 0
-    print(f"K4-w3 on the prop step: {n_sl} sample-levels over {n_rows} rows, {int((~untouched).sum())} rows "
+    print(f"{label} on {what}: {n_sl} sample-levels over {n_rows} rows, {int((~untouched).sum())} rows "
           f"named, max abs err {err:.3e} against plain (largest row sum {scale:.3e})", flush=True)
     if not err <= 1e-5 * scale:
-        fail(f"K4-w3 disagrees with its plain version on the prop step: {err} > 1e-5 * {scale}")
+        fail(f"{label} disagrees with its plain version on {what}: {err} > 1e-5 * {scale}")
     if bool(got[untouched].any()):
-        fail("K4-w3 wrote rows that no sample names on the prop step")
-    o = dict(err=err, ms=time_ms(lambda: kernel(*args)), plain_ms=time_ms(lambda: tg.table_grad_w3_plain(*args),
-                                                                          calls=5),
-             bytes=n_sl * (4 + 3 * 4 + 4 * 16) + n_rows * 128 * 4, ops=n_sl * 128 * 2)
+        fail(f"{label} wrote rows that no sample names on {what}")
+    inputs = [a for i, a in enumerate(args[:-1]) if i != 1]  # all but the permutation
+    o = dict(err=err, ms=time_ms(lambda: kernel(*args)), plain_ms=time_ms(lambda: plain(*args), calls=5),
+             bytes=sum(a.numel() * a.element_size() for a in inputs) + n_rows * 128 * 4, ops=n_sl * 128 * 2)
     bound = o["bytes"] / HBM_BYTES_PER_S * 1e3
-    print(f"K4-w3 on the prop step: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+    print(f"{label} on {what}: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, bound {bound:.4f} ms "
           f"({o['bytes']} B at 3.35 TB/s), {100 * bound / o['ms']:.1f}% of bound", flush=True)
     return o
 
@@ -1649,7 +1679,7 @@ def train_prop(dev) -> dict:
     want["K4-w3"] = n_steps
     if launches != want:
         fail(f"train prop: launches {launches}, expected {want}")
-    k4 = k4_on_prop_inputs(lambda: step(True))
+    k4 = grad_kernel_on_step_inputs("K4-w3", "table_grad_w3", lambda: step(True), "the prop step")
 
     def steps():  # one proposal update and two steps without, as the cadence runs
         for rg in (True, False, False):
@@ -1693,6 +1723,200 @@ def train_prop(dev) -> dict:
     prop_card_vs_cpu(dev, weights)
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(launches=launches["K4-w3"], k4=k4)
+
+
+def quality_run(dev, train_ds, seed: int):
+    """Phase 12's run (``QUALITY_*``) as the occupancy CLI's ``Run``: the
+    field seeded as the other phases seed theirs, constant Adam at 1e-2, no
+    weight decay, the macro budget held at 24 (bench.py escalates nothing)."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+    from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as occ_cli
+
+    cfg = occ_cli.build_config("procedural")
+    cfg.update(
+        aabb=np.array([-1, -1, -1, 1, 1, 1], np.float32), grid_resolution=QUALITY_GRID_RES,
+        render_step_size=QUALITY_STEP, target_sample_batch_size=QUALITY_RAYS * 32,
+        weight_decay=0.0, near_plane=train_ds.near, far_plane=train_ds.far,
+    )
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=QUALITY_GRID_RES, levels=1)
+    field = occ_cli.make_field(cfg, est, device=dev, generator=torch.Generator().manual_seed(seed), **QUALITY_FIELD)
+    return occ_cli.Run(
+        cfg=cfg, field=field, estimator=est, occ_state=est.init(dev), opt=occ_cli.make_optimizer(field, 0.0),
+        schedule=lambda count: 1e-2, generator=torch.Generator(device=dev).manual_seed(seed),
+        max_macro=QUALITY_MACRO, max_macro_cap=QUALITY_MACRO,
+    )
+
+
+def train_quality(dev, card_line: str) -> dict:
+    """Phase 12: the port's first trained scene.  Generates bench.py's
+    quality dataset on the card (timed; a 32x32 crop of one training view
+    against the CPU), trains it through the occupancy CLI's ``train`` with
+    an eval of the test view every 250 steps, holds K2 and K1 against their
+    plain versions on two late steps' own inputs, evaluates PSNR, SSIM,
+    MS-SSIM and LPIPS, serves the test view through the render CLI, saves a
+    checkpoint, restores it and renders the view again.  Returns the
+    launches on the train path, K1's and K2's numbers on the steps' inputs,
+    the late step's ms and the serve rays/s."""
+    import shutil
+    from pathlib import Path
+
+    from nerfacc_tpu_torch.datasets.procedural import intrinsics, make_loaders, render_pixels
+    from nerfacc_tpu_torch.examples import render as render_cli
+    from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as occ_cli
+    from nerfacc_tpu_torch.examples.common import eval_metrics, psnr
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_ds, test_ds = make_loaders(num_rays=QUALITY_RAYS, width=QUALITY_SIZE, height=QUALITY_SIZE,
+                                     n_train=QUALITY_TRAIN_VIEWS, n_test=1, detail=1.0, device=dev)
+    gen_s = time.perf_counter() - t0
+    n_views = QUALITY_TRAIN_VIEWS + 1
+    print(f"quality data: {n_views} views of {QUALITY_SIZE}x{QUALITY_SIZE} generated on the card in {gen_s:.2f} s "
+          f"({n_views * QUALITY_SIZE ** 2 * 512 / gen_s:.1f} scene samples/s)", flush=True)
+    # A crop of training view 0 through the scene's centre, on the CPU.
+    r0 = c0 = (QUALITY_SIZE - QUALITY_CROP) // 2
+    ys, xs = np.mgrid[r0 : r0 + QUALITY_CROP, c0 : c0 + QUALITY_CROP]
+    crop_cpu = render_pixels(train_ds.camtoworlds[0], intrinsics(QUALITY_SIZE, QUALITY_SIZE), xs.reshape(-1),
+                             ys.reshape(-1), detail=1.0, device="cpu").reshape(QUALITY_CROP, QUALITY_CROP, 4)
+    crop_card = train_ds.images[0, r0 : r0 + QUALITY_CROP, c0 : c0 + QUALITY_CROP]
+    diff = np.abs(crop_card.astype(np.int32) - crop_cpu.astype(np.int32))
+    print(f"quality data, card vs CPU on a {QUALITY_CROP}x{QUALITY_CROP} crop of train view 0: "
+          f"{100 * (diff > 0).mean():.3f}% of uint8 values differ, by at most {diff.max()}; "
+          f"crop alpha mean {crop_cpu[..., 3].mean():.1f}", flush=True)
+    if diff.max() > 1:
+        fail(f"quality data: the card's view differs from the CPU's by {diff.max()} uint8 steps")
+
+    # Warm-up on a throwaway run (cuBLAS handles, the allocator), as
+    # bench.py compiles before its clock starts.
+    occ_cli.train(quality_run(dev, train_ds, seed=1), train_ds, 2)
+    run = quality_run(dev, train_ds, seed=0)
+    test = test_ds[0]
+    _, use_skip, *_ = run.estimator.plan_traversal(QUALITY_STEP, 0.0, train_ds.near,
+                                                  max_macro_segments=QUALITY_MACRO)
+    k1_per_step = 1 + int(use_skip)  # the lattice queries, and the skip probes
+    counted = {"K1": occupancy_query, "K2": tg.table_grad_u10, "K3": tg.cell_max, "K4-w3": tg.table_grad_w3,
+               "K4-w8": tg.table_grad_w8, "K5": tg.table_grad_sorted, "K6": tg.table_grad_pos}
+    launches = dict.fromkeys(counted, 0)
+
+    def timed_train(until):
+        """Train to ``until``; returns the losses, sample counts and seconds,
+        and adds the launches to ``launches``."""
+        before = {k: w.launches for k, w in counted.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses, n_samp = occ_cli.train(run, train_ds, until)
+        torch.cuda.synchronize()
+        for k, w in counted.items():
+            launches[k] += w.launches - before[k]
+        return losses, n_samp, time.perf_counter() - t
+
+    def evaluate():
+        with torch.no_grad():
+            img = occ_cli.render_image(run, test["rays"], QUALITY_EVAL_CHUNK)
+        return img, psnr(img, test["pixels"])
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, n_samps, evals = [], [], []
+    train_s, reached, late_ms = 0.0, None, None
+    while run.step < QUALITY_MAX_STEPS and train_s < QUALITY_BUDGET_S:
+        seg_start = run.step
+        seg_end = min(seg_start + QUALITY_EVAL_EVERY, QUALITY_MAX_STEPS)
+        # Steps 16k+1 to 16k+15 of the segment run alone on the clock: no
+        # occupancy update among them.
+        w0 = (seg_end - 16) // 16 * 16 + 1
+        seg_samples = []
+        for part, until in enumerate((w0, w0 + 15, seg_end)):
+            seg_losses, seg_n, dt = timed_train(until)
+            train_s += dt
+            losses += seg_losses
+            seg_samples += seg_n
+            if part == 1:
+                late_ms = dt / 15 * 1e3
+        n_samps += seg_samples
+        _, p = evaluate()
+        spr = float(torch.stack(seg_samples).float().mean()) / QUALITY_RAYS
+        occupied = float(run.occ_state.binaries.float().mean())
+        evals.append(dict(step=run.step, psnr=p, train_s=train_s, samples_per_ray=spr, occupied=occupied))
+        print(f"quality: step={run.step} psnr={p:.4f} train_s={train_s:.3f} samples/ray {spr:.2f} "
+              f"(this segment's steps) occupied cells {100 * occupied:.2f}%", flush=True)
+        if reached is None and p >= QUALITY_TARGET_DB:
+            reached = dict(train_s=train_s, steps=run.step)
+    n_timed = run.step
+    peak = torch.cuda.max_memory_allocated()
+    total_samples = int(torch.stack(n_samps).sum())
+    if not all(math.isfinite(float(x)) for x in losses):
+        fail("quality: a loss is not finite")
+    want = dict.fromkeys(counted, 0)
+    want.update(K1=k1_per_step * n_timed, K2=n_timed)
+    if launches != want:
+        fail(f"quality: launches {launches} over {n_timed} steps, expected {want}")
+    # One more step, recorded: K2 on its own inputs (outside the clock).
+    profile_window(
+        lambda: occ_cli.train(run, train_ds, run.step + 3),
+        ("fetch", "traverse_and_compact", "field_forward", "gather_combine", "rendering", "backward", "table_grad",
+         "optimizer", "occ_update"),
+        f"quality (3 steps from step {run.step})", "profile_train_quality.txt",
+    )
+    # Two more steps, recorded (outside the clock): K2 and K1 on their own
+    # inputs.
+    k2 = grad_kernel_on_step_inputs("K2", "table_grad_u10", lambda: occ_cli.train(run, train_ds, run.step + 1),
+                                    f"the quality run's step {run.step}")
+    k1 = k1_on_train_inputs(lambda: occ_cli.train(run, train_ds, run.step + 1), run.occ_state)
+    img, _ = evaluate()
+    if not bool(torch.isfinite(img).all()) or not (0.0 <= float(img.min()) and float(img.max()) <= 1.0):
+        fail("quality: the eval image is not finite or outside [0, 1]")
+    m = eval_metrics(img, test["pixels"])
+    print(json.dumps({"quality": {
+        "card": card_line, "steps_timed": n_timed, "steps": run.step, "train_s": train_s,
+        "psnr_target_db": QUALITY_TARGET_DB, "time_to_target_s": reached and reached["train_s"],
+        "steps_to_target": reached and reached["steps"], "final": m,
+        "samples_per_s": total_samples / train_s, "late_step_ms": late_ms, "peak_bytes": peak,
+        "first_eval": evals[0], "last_eval": evals[-1], "k1_per_step": k1_per_step,
+        "launches": {"K1": launches["K1"], "K2": launches["K2"]}, "data_gen_s": gen_s,
+    }}), flush=True)
+    print(f"quality: {'reached' if reached else 'did not reach'} {QUALITY_TARGET_DB} dB"
+          + (f" in {reached['train_s']:.3f} s of train time, {reached['steps']} steps" if reached else "")
+          + f"; final PSNR {m['psnr']:.4f} SSIM {m['ssim']:.4f} MS-SSIM {m['ms_ssim']:.4f} "
+          f"LPIPS({m['lpips_src']}) {m['lpips']:.4f} after {run.step} steps; {total_samples / train_s:.1f} kept "
+          f"samples/s over {train_s:.3f} s; late step {late_ms:.2f} ms; K1 {launches['K1']} "
+          f"({k1_per_step} a step), K2 {launches['K2']}; max_memory_allocated {peak} B", flush=True)
+    if m["psnr"] < QUALITY_GATE_DB:
+        fail(f"quality: final PSNR {m['psnr']:.3f} dB is under {QUALITY_GATE_DB} dB")
+
+    # Serve the trained grid through the render CLI, then the checkpoint
+    # round trip: save, restore into new models, render again.
+    kw = dict(near=test_ds.near, far=test_ds.far, render_step_size=QUALITY_STEP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served, n_served = render_cli.render_view(run.field, run.estimator, run.occ_state, test["rays"], **kw)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    print(f"quality serve (render CLI, trained grid): {QUALITY_SIZE ** 2 / serve_s:.1f} rays/s, {n_served} samples "
+          f"({n_served / QUALITY_SIZE ** 2:.2f} a ray), PSNR {psnr(served, test['pixels']):.4f}", flush=True)
+    ckpt = Path("build") / "chip_smoke_quality_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    occ_cli.save(run, str(ckpt), run.step)
+    field, est, occ_state, step = render_cli.load_model(str(ckpt), device=dev, **QUALITY_FIELD)
+    # The renderer's index_add_ sums in the order its atomics land; both
+    # renders of the round trip take the deterministic order.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before, _ = render_cli.render_view(run.field, run.estimator, run.occ_state, test["rays"], **kw)
+        after, _ = render_cli.render_view(field, est, occ_state, test["rays"], **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rt_err = float((after - before).abs().max())
+    print(f"quality checkpoint: step {step} restored from {ckpt}; the restored models render the test view "
+          f"within {rt_err:.3e} of the saved ones (the non-deterministic and deterministic renders before saving "
+          f"differ by {float((served - before).abs().max()):.3e})", flush=True)
+    if step != run.step or not rt_err <= 1e-6:
+        fail(f"quality checkpoint: step {step} of {run.step}, render differs by {rt_err}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k2=k2, late_step_ms=late_ms, serve_rays_s=QUALITY_SIZE ** 2 / serve_s)
 
 
 def k1_render_inputs(dev, rng) -> tuple:
@@ -1782,10 +2006,11 @@ def k1_vs_plain(dev):
     return est, state, dict(err=k1_max_err, ms=k1_ms, plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops)
 
 
-def serve(dev, est, state, crop: bool) -> None:
+def serve(dev, est, state, crop: bool) -> float:
     """Phase 3: one 800x800 view at full width through the port, K1 launched
     on that path, and a profile of every 8th chunk; then, if ``crop``, phase
-    4: a 64x64 crop on the card against the CPU."""
+    4: a 64x64 crop on the card against the CPU.  Returns the view's
+    rays/s."""
     from nerfacc_tpu_torch.datasets.procedural import pose_spherical
     from nerfacc_tpu_torch.datasets.utils import generate_rays
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
@@ -1868,7 +2093,7 @@ def serve(dev, est, state, crop: bool) -> None:
     )
 
     if not crop:
-        return
+        return n_rays / dt
     # Phase 4: card against CPU on a 64x64 crop.
     r0 = (HEIGHT - CROP) // 2
     c0 = (WIDTH - CROP) // 2
@@ -1899,9 +2124,10 @@ def serve(dev, est, state, crop: bool) -> None:
         fail(f"card and CPU rendered different sample counts ({n_gpu} vs {n_cpu})")
     if max(errs.values()) > 1e-4:
         fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
+    return n_rays / dt
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -1959,7 +2185,7 @@ def main(argv=None) -> None:
     if 2 in run:
         est, state, k1 = k1_vs_plain(dev)
     if 3 in run:
-        serve(dev, est, state, crop=4 in run)
+        serve_rays_s = serve(dev, est, state, crop=4 in run)
 
     # ---- 5. the table-gradient kernels and K3 against their plain versions --
     if 5 in run:
@@ -1967,13 +2193,13 @@ def main(argv=None) -> None:
 
     # ---- 6. train at full width ---------------------------------------------
     if 6 in run:
-        trained, train_launches, k1_train_err = train_full_width(
+        trained, train_launches, k1_train_err, train_step_ms = train_full_width(
             dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_inputs=True
         )
 
     # ---- 7. train at full width, tcnn shape (grouped encoder) ---------------
     if 7 in run:
-        grouped, grouped_launches, _ = train_full_width(
+        grouped, grouped_launches, _, _ = train_full_width(
             dev, GROUPED_FIELD_CFG, table_grad_pos, "K6", "profile_train_grouped.txt", check_inputs=False
         )
 
@@ -1986,7 +2212,7 @@ def main(argv=None) -> None:
 
     # ---- 9. train at full width in float32 (K4-w3) ---------------------------
     if 9 in run:
-        _, f32_launches, _ = train_full_width(
+        _, f32_launches, _, _ = train_full_width(
             dev, TRAIN_FIELD_CFG, table_grad_w3, "K4-w3", "profile_train_f32.txt", check_inputs=False,
             compute_dtype=None,
         )
@@ -1998,6 +2224,14 @@ def main(argv=None) -> None:
     # ---- 11. train and eval, the proposal-network path --------------------
     if 11 in run:
         prop = train_prop(dev)
+
+    # ---- 12. the first trained scene: bench.py's quality run ---------------
+    if 12 in run:
+        quality = train_quality(dev, card_line)
+        print(f"quality against the random fields: late step {quality['late_step_ms']:.2f} ms"
+              + (f" (phase 6: {train_step_ms:.2f} ms)" if 6 in run else "")
+              + f"; serve {quality['serve_rays_s']:.1f} rays/s on the trained grid"
+              + (f" (phase 3, random field: {serve_rays_s:.1f})" if 3 in run else ""), flush=True)
 
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
@@ -2040,6 +2274,15 @@ def main(argv=None) -> None:
             kernel_row("table_grad_w3_prop", src + "table_grad.cu", tg_py + "572", prop["launches"],
                        prop["k4"]["err"], prop["k4"]["ms"], prop["k4"]["plain_ms"], prop["k4"]["bytes"],
                        prop["k4"]["ops"], None),
+            # K1 and K2 on the trained scene's path (phase 12), each on one
+            # late step's own inputs.
+            kernel_row("occupancy_query_quality", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       quality["launches"]["K1"], quality["k1"]["err"], quality["k1"]["lattice"]["ms"],
+                       quality["k1"]["lattice"]["plain_ms"], quality["k1"]["lattice"]["bytes"],
+                       quality["k1"]["lattice"]["ops"], None),
+            kernel_row("table_grad_u10_quality", src + "table_grad_u10.cu", tg_py + "749",
+                       quality["launches"]["K2"], quality["k2"]["err"], quality["k2"]["ms"],
+                       quality["k2"]["plain_ms"], quality["k2"]["bytes"], quality["k2"]["ops"], None),
         ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

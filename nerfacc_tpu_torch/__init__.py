@@ -23,7 +23,11 @@ on (``alpha_thre``, ``refilter_capacity``, ``sampling(sigma_fn=)``,
 :class:`~nerfacc_tpu_torch.estimators.prop_net.PropNetEstimator`,
 :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField` and
 :func:`~nerfacc_tpu_torch.rendering.propnet_render_rays`), whose train step
-takes the radiance field's table gradient through the same kernels.
+takes the radiance field's table gradient through the same kernels; and
+what a user trains and evaluates with: the procedural scene and the
+NeRF-Synthetic loader (:mod:`~nerfacc_tpu_torch.datasets`), image metrics
+and checkpoints (:mod:`~nerfacc_tpu_torch.utils`), and the NGP train and
+render CLIs (``python -m nerfacc_tpu_torch.examples.<name>``).
 """
 
 __version__ = "0.1.0"

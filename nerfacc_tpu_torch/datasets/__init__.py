@@ -1,1 +1,5 @@
-"""Camera rays for the port (no dataset loaders yet)."""
+"""Datasets: camera rays, the NeRF-Synthetic loader and the procedural scene."""
+
+from .utils import Rays, generate_rays, namedtuple_map
+
+__all__ = ["Rays", "generate_rays", "namedtuple_map"]

@@ -7,7 +7,7 @@ packages render from bit-identical rays.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,17 +22,20 @@ class Rays(NamedTuple):
     viewdirs: Tensor  # (..., 3)
 
 
-def generate_rays(
+def namedtuple_map(fn, tup):
+    """``fn`` on every field of ``tup`` that is not None."""
+    return type(tup)(*(None if x is None else fn(x) for x in tup))
+
+
+def camera_rays(
     x: np.ndarray,  # pixel cols (...,)
     y: np.ndarray,  # pixel rows (...,)
     K: np.ndarray,  # (3, 3) intrinsics
     c2w: np.ndarray,  # (..., 3, 4) or (3, 4) camera-to-world
     opengl: bool = True,
-    *,
-    device: Union[str, torch.device] = "cuda",
-) -> Rays:
-    """Pixel-center rays; OpenGL (-z forward) or OpenCV (+z) convention."""
-    device = resolve_device(device)
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pixel-center rays as float32 numpy ``(origins, viewdirs)``; OpenGL
+    (-z forward) or OpenCV (+z) convention."""
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
     sign = -1.0 if opengl else 1.0
@@ -49,7 +52,22 @@ def generate_rays(
     d = (dirs[..., None, :] * rot).sum(-1)
     viewdirs = d / np.linalg.norm(d, axis=-1, keepdims=True)
     origins = np.broadcast_to(trans, viewdirs.shape)
+    return origins.astype(np.float32), viewdirs.astype(np.float32)
+
+
+def generate_rays(
+    x: np.ndarray,
+    y: np.ndarray,
+    K: np.ndarray,
+    c2w: np.ndarray,
+    opengl: bool = True,
+    *,
+    device: Union[str, torch.device] = "cuda",
+) -> Rays:
+    """:func:`camera_rays` placed on ``device``."""
+    device = resolve_device(device)
+    origins, viewdirs = camera_rays(x, y, K, c2w, opengl)
     return Rays(
-        origins=torch.from_numpy(origins.astype(np.float32)).to(device),
-        viewdirs=torch.from_numpy(viewdirs.astype(np.float32)).to(device),
+        origins=torch.from_numpy(origins).to(device),
+        viewdirs=torch.from_numpy(viewdirs).to(device),
     )

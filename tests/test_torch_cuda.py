@@ -3,7 +3,8 @@
 K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6, the wrappers'
 refusals, the visibility filter (the volrend functions and the
 training renderer) and the proposal-network step (its t ladder, and one
-step through K4-w3 and through K2) against the CPU.  Needs an NVIDIA
+step through K4-w3 and through K2) against the CPU, the procedural views
+and the occupancy CLI's checkpoint round trip on the card.  Needs an NVIDIA
 GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
 imports JAX, hence ``--noconftest``)::
 
@@ -925,3 +926,63 @@ def test_prop_step_on_the_card_matches_the_cpu(cuda, cdt, kernel):
         assert bool((g_cpu[~agree].abs() <= tol).all()), k
         held = agree & (g_cpu.abs() > 1e-9)
         assert float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max()) <= 1e-6, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detail", [0.0, 1.0])
+def test_procedural_views_on_the_card_match_the_cpu(cuda, detail):
+    # The card's exp, sin and cumsum round in their own ways: a uint8 value
+    # may land one step from the CPU's where it sits on a rounding edge.
+    from nerfacc_tpu_torch.datasets.procedural import generate_dataset
+
+    kw = dict(width=48, height=40, n_train=2, n_test=1, detail=detail)
+    card, cpu = generate_dataset(**kw, device=cuda), generate_dataset(**kw, device="cpu")
+    for a, b in zip(card, cpu):
+        if isinstance(a, float):
+            assert a == b
+        elif a.dtype == np.uint8:
+            diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            print(f"detail {detail}: {100 * (diff > 0).mean():.3f}% of uint8 values differ")
+            assert diff.max() <= 1
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    # The occupancy CLI's checkpoint: saved from the card, restored into new
+    # models on the card, the same parameters, Adam state and grid bit for
+    # bit, and the render CLI's view of the restored models the same.
+    from nerfacc_tpu_torch.datasets.procedural import make_loaders
+    from nerfacc_tpu_torch.examples import render as render_cli
+    from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as occ_cli
+
+    argv = ["--smoke", "--device", "cuda", "--num_rays", "512", "--levels", "2", "--log2t", "14",
+            "--dtype", "bf16"]
+    run, train_ds, _, _ = occ_cli.setup(occ_cli.parse_args(argv))
+    occ_cli.train(run, train_ds, 20)
+    ckpt = str(tmp_path / "ckpt")
+    occ_cli.save(run, ckpt, run.step)
+
+    again, _, _, _ = occ_cli.setup(occ_cli.parse_args(argv))
+    occ_cli.resume(again, ckpt)
+    assert again.step == 20
+    for (k, a), b in zip(run.field.state_dict().items(), again.field.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b), k
+    for a, b in zip(run.opt.state_dict()["state"].values(), again.opt.state_dict()["state"].values()):
+        assert all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+    for name in ("occs", "binaries", "binaries_packed", "skip_grid", "skip_packed"):
+        assert torch.equal(getattr(run.occ_state, name), getattr(again.occ_state, name)), name
+
+    field, est, occ_state, step = render_cli.load_model(ckpt, levels=2, log2t=14, dtype="bf16", device=cuda)
+    _, test_ds = make_loaders(num_rays=1, width=32, height=32, n_test=1, device=cuda)
+    rays = test_ds[0]["rays"]
+    kw = dict(near=test_ds.near, far=test_ds.far, render_step_size=1e-2, max_samples=256)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, _ = render_cli.render_view(run.field, run.estimator, run.occ_state, rays, **kw)
+        b, _ = render_cli.render_view(field, est, occ_state, rays, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert step == 20 and bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-6

@@ -12,7 +12,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "nerfacc_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nerfacc_tpu"}
+# The card's machine has no imageio and no PIL either.
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nerfacc_tpu", "imageio", "PIL"}
 
 
 def _imported_roots(path: Path):
