@@ -6,8 +6,8 @@
 
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
-ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10,
-11 and 12 none):
+ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
+14 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -25,8 +25,9 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10,
 5. the table-gradient kernels against their plain versions on the card, at
    the training shapes, with timings beside each kernel's bound: K2 (bf16),
    K4 (w3 in float32 and bf16, w8 in bf16 and float32) and K5 (bf16) at
-   2^21 sample-levels over 4 x 2^15 rows, K6 at 2^19 samples x 8 fetches
-   over 2 x 2^16 rows, and K3 (per-cell max) at 2^20 draws; each kernel's
+   2^21 sample-levels over 4 x 2^15 rows, K6 at 2^19 samples over 2 x 2^16
+   rows at each window width (``K6_SPLITS``: F = 2 at splits 4, 1, 2 and 8,
+   F = 8 at split 1), and K3 (per-cell max) at 2^20 draws; each kernel's
    share of its bound, the zeroing of the output, the sorts and the
    ``quantize_u10`` of K2's weights (ahead of K2 on the main path).
 6. train: the NGP-occ train step of ``bench.py:59-294`` at its full width
@@ -46,7 +47,8 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10,
    field width, same weights, jitter and draws, for each table-gradient
    route: the fused encoder at float32 (K4-w3, with one occupancy update)
    and bf16 (K2), the grouped encoder at bf16 (K6) and float32 (autograd),
-   and the fused encoder with ``table_grad="pallas"`` (K5, bf16),
+   and at splits 2 and 8 (K6 at 8 and 2 columns a corner), and the fused
+   encoder with ``table_grad="pallas"`` (K5, bf16),
    ``factor_pack="w8"`` (K4-w8, bf16 and float32) and ``"w3"`` (K4-w3,
    bf16): the kept samples, the loss, every gradient and the parameters
    after Adam must agree, and each route must launch its kernel.
@@ -102,6 +104,23 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9, 10,
    a checkpoint saved, restored and rendered again, within 1e-6.  Needs no
    other phase (it prints phase 6's step and phase 3's rays/s beside its
    own when those ran).
+13. the vanilla NeRF, trained: ``train_mlp_nerf``'s own ``train``,
+   ``train_step``, ``occ_update`` and ``eval_render`` at the CLI's
+   NeRF-Synthetic block (``MLP_*``: aabb +-1.5, res-128 grid, step 5e-3,
+   1024 rays x 64 slots, the 8 x 256 field) on phase 12's textured scene at
+   800x800, up to 3000 steps or 60 s of train time, an eval of the test view
+   every 500 steps; step and update ms, kept samples/s, rays/s, samples a
+   ray, the occupied share, peak memory, first and last loss, one 800x800
+   eval view's rays/s, PSNR and SSIM; K1 as often a step as the traversal
+   queries it and K3 once an update, each held against its plain version on
+   the phase's own inputs; a profile of three late steps with the share of
+   the scan's gather backward; one step at 256 rays on the card against the
+   CPU; the final PSNR at least ``MLP_GATE_DB`` and the last 16 steps' mean
+   loss below the first 16 steps'.  Needs no other phase.
+14. T-NeRF and NDR: ``train_mlp_tnerf``'s T-NeRF (``TNERF_*``: res-128
+   grid, 1024 rays x 48 slots) for 200 steps on the dynamic procedural
+   scene, step ms and rays/s, K1 and K3 counted; one T-NeRF step and one NDR
+   step at 256 rays on the card against the CPU.  Needs no other phase.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -185,6 +204,22 @@ QUALITY_FIELD = dict(levels=4, feats=16, log2t=18, dtype="bf16")
 QUALITY_MAX_STEPS, QUALITY_BUDGET_S, QUALITY_EVAL_EVERY = 3000, 120.0, 250
 QUALITY_TARGET_DB, QUALITY_GATE_DB = 33.0, 30.0
 QUALITY_EVAL_CHUNK, QUALITY_CROP = 8192, 32
+# Phase 13: the vanilla NeRF of examples/train_mlp_nerf.py at its
+# NeRF-Synthetic block (:76-90): aabb +-1.5, a res-128 single-level grid,
+# step 5e-3, near 0, 1024 rays x 64 slots, VanillaNeRFRadianceField at its
+# full width (8 x 256, skip 4, condition 1 x 128), Adam 5e-4, Huber loss,
+# an update every 16 steps (every cell below step 256), the eval in
+# 8192-ray chunks.  The textured procedural scene at 800x800 (phase 12's
+# generator, 36 train views) stands in for Lego.  Bounded to 3000 steps or
+# 60 s of train time.
+MLP_RAYS, MLP_TRAIN_VIEWS, MLP_MAX_STEPS, MLP_BUDGET_S = 1024, 36, 3000, 60.0
+MLP_EVAL_EVERY, MLP_EVAL_CHUNK, MLP_CPU_RAYS = 500, 8192, 256
+MLP_GATE_DB = 20.0
+# Phase 14: examples/train_mlp_tnerf.py's T-NeRF at its D-NeRF block
+# (:71-82: aabb +-1.5, res-128 grid, step 5e-3, 1024 rays x 48 slots) on the
+# dynamic procedural scene (24 train views of 400x400, D-NeRF's usual
+# half-resolution size), 200 steps.
+TNERF_SIZE, TNERF_TRAIN_VIEWS, TNERF_STEPS = 400, 24, 200
 WIDTH = HEIGHT = 800
 FOCAL = 0.5 * WIDTH / math.tan(0.5 * 0.6911112070083618)  # lego's camera_angle_x
 CROP = 64
@@ -261,14 +296,15 @@ def adversarial_points(aabb: np.ndarray, levels: int, res: int, rng) -> np.ndarr
     return (lo + (nrm + 0.5) * ext).astype(np.float32)
 
 
-def profile_window(run, stages, what: str, out_name: str) -> None:
+def profile_window(run, stages, what: str, out_name: str) -> dict:
     """Where the time of ``run()`` goes: time it without the profiler, then
     trace it with torch.profiler.  Prints the device's busy and idle share
     (kernel time over the untraced wall time), kernel time by stage (the
     ``record_function`` ranges named in ``stages``; each kernel goes to the
     innermost range whose span on the GPU timeline holds it, the rest to
     "unattributed"), and the top kernels.  The full table goes to
-    ``chiprun_out/<out_name>``."""
+    ``chiprun_out/<out_name>``.  Returns the device's busy milliseconds and
+    each kernel's ``(ms, count)`` by name."""
     import bisect
     import gc
     import itertools
@@ -343,6 +379,7 @@ def profile_window(run, stages, what: str, out_name: str) -> None:
     (out / out_name).write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
     )
+    return dict(busy_ms=busy * 1e3, kernels=by_kernel)
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms):
@@ -575,24 +612,38 @@ def shell_points(rng, n: int, dev) -> torch.Tensor:
     return torch.from_numpy((0.5 + radius * dirs).astype(np.float32)).to(dev)
 
 
-def k6_inputs(u, rng, dev) -> tuple:
+# K6's window widths held in phase 5, as (F, keys_per_row, log2_hashmap_size):
+# the tcnn shape (16 levels x 2 features, 2 spans of 2^16 rows) at its default
+# split 4 and at splits 1, 2 and 8, and 16 levels x 8 features at split 1
+# (the fall-back of every split 4 at F = 8) over the same 2 x 2^16 rows.
+K6_SPLITS = ((2, 4, 16), (2, 1, 16), (2, 2, 16), (2, 8, 16), (8, 1, 14))
+
+
+def k6_label(F: int, keys_per_row: int) -> str:
+    return "K6" if (F, keys_per_row) == (2, 4) else f"K6-F{F}-split{keys_per_row}"
+
+
+def k6_inputs(u, rng, dev, F=2, keys_per_row=4, log2t=16) -> tuple:
     """K6's arguments at the grouped train shape: the points ``u`` through
-    the tcnn-shape encoder (2 spans of 2^16 rows, 8 fetches a sample), the
-    sorted (row, fetch) keys and their permutation, bf16 cotangents from
-    ``rng``, with the fetch constants; then the unsorted keys and the mask of
-    rows that no fetch names."""
+    the grouped encoder of 16 levels x ``F`` features (by default the tcnn
+    shape: 2 spans of 2^16 rows, 8 fetches a sample), the sorted (row,
+    fetch) keys and their permutation, bf16 cotangents from ``rng``, with
+    the fetch constants; then the unsorted keys and the mask of rows that no
+    fetch names."""
     from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
     from nerfacc_tpu_torch.ops.table_grad import FetchConsts
 
-    genc = HashGridEncoderGrouped(log2_hashmap_size=16, device=dev)
+    genc = HashGridEncoderGrouped(n_features_per_level=F, log2_hashmap_size=log2t, keys_per_row=keys_per_row,
+                                  device=dev)
     gx, gy, gz = (u[:, i].contiguous() for i in range(3))
     g_rows = genc.fetch_rows(gx, gy, gz)
     (nf, n), g_n_rows = g_rows.shape, genc.table.shape[0]
+    cols = len(genc.fetches[0].res) * F
     g_key = (g_rows * nf + torch.arange(nf, device=dev)[:, None]).reshape(-1).to(torch.int32)
     g_sorted, g_perm = torch.sort(g_key)
-    g_dout = torch.from_numpy((rng.standard_normal((nf * n, 4)) * 1e-3).astype(np.float32)).to(dev).to(torch.bfloat16)
+    g_dout = torch.from_numpy((rng.standard_normal((nf * n, cols)) * 1e-3).astype(np.float32)).to(dev).to(torch.bfloat16)
     g_untouched = torch.bincount(g_rows.reshape(-1), minlength=g_n_rows) == 0
-    args = (g_sorted, g_perm, gx, gy, gz, g_dout, g_n_rows, genc.fetches, 2,
+    args = (g_sorted, g_perm, gx, gy, gz, g_dout, g_n_rows, genc.fetches, F,
             FetchConsts(genc._fetch_res, genc._fetch_is_key, genc._fetch_win))
     return args, g_key, g_untouched
 
@@ -656,10 +707,16 @@ def kernels_vs_plain(dev) -> dict:
     print(f"K2/K4/K5 inputs: {n_sl} sample-levels over {n_rows} rows, level 0 on {rows_hit} rows", flush=True)
 
     # K6 at the grouped train shape: the same points through the tcnn-shape
-    # encoder.
-    k6_args, g_key, g_untouched = k6_inputs(u, rng, dev)
-    nf, g_n_rows = len(k6_args[7]), k6_args[6]
-    print(f"K6 inputs: {n} samples x {nf} fetches over {g_n_rows} rows", flush=True)
+    # encoder, at each split of K6_SPLITS (one window width each).
+    k6_cases = []
+    for F, split, log2t in K6_SPLITS:
+        args, key, zero_rows = k6_inputs(u, rng, dev, F, split, log2t)
+        nf, jg = len(args[7]), len(args[7][0].res)
+        print(f"{k6_label(F, split)} inputs: {n} samples x {nf} fetches over {args[6]} rows, F = {F}, "
+              f"keys_per_row {split}, {jg * F} columns a corner", flush=True)
+        k6_cases.append((k6_label(F, split), table_grad_pos, table_grad_pos_plain, args, zero_rows))
+        if (F, split) == (2, 4):
+            g_key, g_n_rows = key, args[6]
 
     out = {}
     for label, kern, plain, args, zero_rows in (
@@ -669,7 +726,7 @@ def kernels_vs_plain(dev) -> dict:
         ("K4-w8-bf16", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8_bf, dout_bf, n_rows), untouched),
         ("K4-w8", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8, dout, n_rows), untouched),
         ("K5", table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg, n_rows), untouched),
-        ("K6", table_grad_pos, table_grad_pos_plain, k6_args, g_untouched),
+        *k6_cases,
     ):
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
@@ -711,11 +768,17 @@ def kernels_vs_plain(dev) -> dict:
         out[label]["bytes"] = n_sl * per_sample + table_bytes
         # A multiply and an add per term (K5: an add per element).
         out[label]["ops"] = n_sl * 128 * (1 if label == "K5" else 2)
-    n_pairs = nf * n
-    out["K6"]["bytes"] = n_pairs * (4 + 2 * 4) + n * 3 * 4 + g_n_rows * 128 * 4
-    # Per pair: two sub-levels' fractions and corner weights (about 46
-    # operations each) and 32 terms of a multiply and an add.
-    out["K6"]["ops"] = n_pairs * (2 * 46 + 32 * 2)
+    for label, _, _, args, _ in k6_cases:
+        fetches, F = args[7], args[8]
+        n_pairs, jg = len(fetches) * n, len(fetches[0].res)
+        # A key and jg * F bf16 cotangents a pair, a position a sample, the
+        # table written once.
+        out[label]["bytes"] = n_pairs * (4 + 2 * jg * F) + n * 3 * 4 + args[6] * 128 * 4
+        # Per pair: each sub-level's fractions and corner weights (about 46
+        # operations) and 8 jg F terms of a multiply and an add.
+        out[label]["ops"] = n_pairs * (jg * 46 + 8 * jg * F * 2)
+    del k6_cases
+    n_pairs = g_key.numel()
     for label, o in out.items():
         bound = o["bytes"] / HBM_BYTES_PER_S * 1e3
         print(
@@ -854,13 +917,15 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
     return field, launches, k1_err, step_time / TRAIN_ITERS * 1e3
 
 
-def hold_step(label, a, b, tol, mlp_tol, what) -> None:
+def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0) -> None:
     """One train step on the card (``a``) against the CPU (``b``), each a
     dict of the kept-sample count ``n``, the ``loss``, the ``grads`` and the
     ``params`` after Adam: equal counts, the loss within ``tol`` relative,
     every hash table's gradient within ``tol`` and the others within ``mlp_tol`` of
     their largest value, the parameters held where the gradients' signs
-    agree."""
+    agree and ``|g|`` is far above Adam's ``adam_eps`` and ``held_tols``
+    times the gradient's tolerance (Adam's first step moves a parameter by
+    ``lr * g / (|g| + eps)``, which follows ``g`` closely only there)."""
     if a["n"] != b["n"]:
         fail(f"card vs CPU ({label}): kept samples {a['n']} vs {b['n']}")
     loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -875,20 +940,39 @@ def hold_step(label, a, b, tol, mlp_tol, what) -> None:
         # agree within g_tol, and the step is held where the signs agree
         # and |g| is far above eps = 1e-15.
         agree = torch.sign(g_gpu) == torch.sign(g_cpu)
-        held = agree & (g_cpu.abs() > 1e-9)
+        held = agree & (g_cpu.abs() > max(1e-9, 100 * adam_eps, held_tols * g_tol))
         p_err = float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max())
         if worst[k] > k_tol or not bool((g_cpu[~agree].abs() <= g_tol).all()) or p_err > 1e-6:
             fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}), "
                  f"params after Adam err {p_err:.3e}")
+    table = f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), " if "encoder.table" in worst else ""
     print(
         f"card vs CPU train step ({label}, {what}): samples "
         f"{a['n']} = {b['n']}, loss {a['loss']:.7f} vs {b['loss']:.7f} (rel err {loss_err:.2e}), "
-        f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), worst over "
-        f"parameters {max(worst.values()):.2e} (tol {mlp_tol}); CPU step {b['s']:.1f} s",
+        f"{table}worst over parameters {max(worst.values()):.2e} (tol {mlp_tol}); CPU step {b['s']:.1f} s",
         flush=True,
     )
     if loss_err > tol:
         fail(f"card vs CPU ({label}): loss rel err {loss_err} > {tol}")
+
+
+def ngp_field(cfg: dict, compute_dtype, device):
+    """``NGPRadianceField(aabb=AABB, **cfg)``; a ``keys_per_row`` in ``cfg``
+    gives its grouped encoder that split (the JAX package's
+    ``NERFACC_GROUPED_SPLIT``), on the same table."""
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+
+    cfg = dict(cfg)
+    keys_per_row = cfg.pop("keys_per_row", None)
+    field = NGPRadianceField(aabb=AABB, compute_dtype=compute_dtype, device=device, **cfg)
+    if keys_per_row is not None:
+        e = field.encoder
+        field.encoder = HashGridEncoderGrouped(
+            e.n_levels, e.n_features_per_level, e.table_size.bit_length() - 1, keys_per_row=keys_per_row,
+            compute_dtype=compute_dtype, device=device,
+        )
+    return field
 
 
 def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
@@ -898,7 +982,6 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
     update after the float32 fused step).  Returns each route's kernel
     launches in its card step."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
-    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
     from nerfacc_tpu_torch.ops import table_grad as tg
 
     cpu = torch.device("cpu")
@@ -931,6 +1014,10 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
         ("bf16", fused, fused_state, bf, 2e-2, 2e-2, "table_grad_u10"),
         ("grouped bf16", grouped, grouped_state, bf, 2e-2, 2e-2, "table_grad_pos"),
         ("grouped float32", grouped, grouped_state, None, 1e-4, 3e-4, None),
+        # K6 at the other window widths of the same table: split 2 (jg = 4,
+        # 8 columns a corner) and split 8 (jg = 1, 2 columns a corner).
+        ("grouped bf16 split 2", dict(grouped, keys_per_row=2), grouped_state, bf, 2e-2, 2e-2, "table_grad_pos"),
+        ("grouped bf16 split 8", dict(grouped, keys_per_row=8), grouped_state, bf, 2e-2, 2e-2, "table_grad_pos"),
         ("pallas bf16", dict(fused, table_grad="pallas"), fused_state, bf, 2e-2, 2e-2, "table_grad_sorted"),
         ("w8 bf16", dict(fused, factor_pack="w8"), fused_state, bf, 2e-2, 2e-2, "table_grad_w8"),
         ("w8 float32", dict(fused, factor_pack="w8"), fused_state, None, 1e-4, 3e-4, "table_grad_w8"),
@@ -940,7 +1027,7 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
     for label, cfg, field_state, cdt, tol, mlp_tol, kernel in routes:
         res = []
         for device in (dev, cpu):
-            field = NGPRadianceField(aabb=AABB, compute_dtype=cdt, device=device, **cfg)
+            field = ngp_field(cfg, cdt, device)
             field.load_state_dict({k: v.to(device) for k, v in field_state.items()})
             opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
             state = est.set_binaries(est.init(device), shell)
@@ -1919,6 +2006,270 @@ def train_quality(dev, card_line: str) -> dict:
     return dict(launches=launches, k1=k1, k2=k2, late_step_ms=late_ms, serve_rays_s=QUALITY_SIZE ** 2 / serve_s)
 
 
+def mlp_run(cli, cfg, field, dev, seed=0):
+    """A ``Run`` of the MLP CLIs (``train_mlp_nerf.Run``) for ``field`` on a
+    fresh grid of ``cfg``."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=1)
+    return cli.Run(cfg=cfg, field=field, estimator=est, occ_state=est.init(dev),
+                   opt=torch.optim.Adam(field.parameters(), lr=cli.LR),
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+# Card against CPU, one MLP step at full width (256 rays): the loss within
+# rtol 1e-5, every gradient within 5e-3 of its largest entry.  A weight's
+# gradient sums one product a kept sample, of either sign, and cuBLAS and
+# the CPU's GEMM add them in other orders (no TF32), so the gradients
+# differ by float32 rounding that grows with the count of samples and
+# their cancellation: 1.016e-05, 2.535e-04, 2.070e-04 and 6.31e-04 of the
+# largest entry in four runs of the vanilla step, 4.01e-04 for T-NeRF (my
+# chip runs, PR 12; phase 8 holds the NGP MLPs at 3e-4 for the same
+# reason).  The CPU tests' 1e-5 holds 64-ray steps against JAX.  The step
+# starts from the run's initial weights on its trained grid.  NDR's warp
+# also rounds a position an ulp away now and then, which the degree-10
+# encoding multiplies by up to 2^9 (tests/test_torch_mlp_train.py):
+# 8.849e-03 measured on a warp bias, so 5e-2.
+MLP_LOSS_RTOL, MLP_GRAD_TOL, NDR_GRAD_TOL = 1e-5, 5e-3, 5e-2
+
+
+def mlp_card_vs_cpu(label, step_fn, make_field, run, batch, grad_tol=MLP_GRAD_TOL) -> None:
+    """One ``step_fn(run, *batch)`` (an MLP CLI's ``train_step``) on the
+    card and on the CPU from ``run``'s weights and grid, with the same rays,
+    jitter and pixels (``batch``, CPU tensors): :func:`hold_step`."""
+    res = []
+    weights = {k: v.detach().cpu().clone() for k, v in run.field.state_dict().items()}
+    for device in (run.occ_state.occs.device, torch.device("cpu")):
+        field = make_field(device)
+        field.load_state_dict(weights)
+        r = type(run)(cfg=run.cfg, field=field, estimator=run.estimator, occ_state=state_on(run.occ_state, device),
+                      opt=torch.optim.Adam(field.parameters(), lr=run.opt.defaults["lr"]), generator=run.generator)
+        t0 = time.perf_counter()
+        loss, n_samp = step_fn(r, *(t.to(device) for t in batch))
+        res.append(dict(
+            loss=float(loss), n=int(n_samp), s=time.perf_counter() - t0,
+            grads={k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                   for k, p in field.named_parameters()},
+            params={k: p.detach().cpu() for k, p in field.named_parameters()},
+        ))
+    # The MLP CLIs' Adam has eps 1e-8, and the gradients are held only to
+    # grad_tol of their largest entry: a parameter is held where |g| is
+    # above 1e-6 and ten gradient tolerances (held where |g| > 1e-9, one of
+    # mlp.base.layers.3 was 2.075e-06 apart, and held where |g| > 1e-6, one
+    # of NDR's 2.636e-06; my chip runs, PR 12).
+    hold_step(label, res[0], res[1], MLP_LOSS_RTOL, grad_tol, f"{batch[0].shape[0]} rays, full width",
+              adam_eps=run.opt.defaults["eps"], held_tols=10.0)
+
+
+def train_mlp(dev, card_line: str) -> dict:
+    """Phase 13: the vanilla NeRF trained through ``train_mlp_nerf``'s own
+    ``train`` (its ``train_step`` and ``occ_update``) at the CLI's
+    NeRF-Synthetic configuration (``MLP_*``) on the textured procedural
+    scene, with an eval of the test view every ``MLP_EVAL_EVERY`` steps;
+    K1 as often a step as the traversal queries it and K3 once an update,
+    each held against its plain version on the phase's own inputs; a
+    profile of three late steps; one 800x800 eval view; one step at 256
+    rays on the card against the CPU.  Returns the launches and K1's and
+    K3's numbers."""
+    from nerfacc_tpu_torch.datasets.procedural import make_loaders
+    from nerfacc_tpu_torch.examples import train_mlp_nerf as cli
+    from nerfacc_tpu_torch.examples.common import eval_metrics, psnr, render_image_chunked
+    from nerfacc_tpu_torch.models.mlp import VanillaNeRFRadianceField
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_ds, test_ds = make_loaders(num_rays=MLP_RAYS, width=QUALITY_SIZE, height=QUALITY_SIZE,
+                                     n_train=MLP_TRAIN_VIEWS, n_test=1, detail=1.0, device=dev)
+    print(f"mlp data: {MLP_TRAIN_VIEWS + 1} views of {QUALITY_SIZE}x{QUALITY_SIZE} generated on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = dict(cli.build_config(procedural=False, smoke=False), samples_per_ray=64,
+               sample_capacity=MLP_RAYS * 64)
+
+    def new_run(seed):
+        field = VanillaNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(seed))
+        return mlp_run(cli, cfg, field, dev, seed)
+
+    # Warm-up on a throwaway run (cuBLAS handles, the allocator).
+    cli.train(new_run(1), train_ds, 2)
+    run = new_run(0)
+    n_params = sum(p.numel() for p in run.field.parameters())
+    _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], 0.0, cfg["near_plane"])
+    k1_per_step = 1 + int(use_skip)  # the lattice queries, and the skip probes
+    counted = {"K1": occupancy_query, "K2": tg.table_grad_u10, "K3": tg.cell_max, "K4-w3": tg.table_grad_w3,
+               "K4-w8": tg.table_grad_w8, "K5": tg.table_grad_sorted, "K6": tg.table_grad_pos}
+    launches = dict.fromkeys(counted, 0)
+    test = test_ds[0]
+
+    def timed_train(until):
+        before = {k: w.launches for k, w in counted.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses, n_samp = cli.train(run, train_ds, until)
+        torch.cuda.synchronize()
+        for k, w in counted.items():
+            launches[k] += w.launches - before[k]
+        return losses, n_samp, time.perf_counter() - t
+
+    def evaluate():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = render_image_chunked(lambda o, d: cli.eval_render(run, o, d), test["rays"], chunk=MLP_EVAL_CHUNK)
+        torch.cuda.synchronize()
+        return img, psnr(img, test["pixels"]), time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, n_samps, curve = [], [], []
+    train_s, late_ms, update_ms = 0.0, None, None
+    while run.step < MLP_MAX_STEPS and train_s < MLP_BUDGET_S:
+        seg_end = min(run.step + MLP_EVAL_EVERY, MLP_MAX_STEPS)
+        # Steps 16k+1 to 16k+15 run alone on the clock (no update among
+        # them), and step 16k + 16 with its update (a post-warm-up one).
+        w0 = (seg_end - 32) // 16 * 16 + 1
+        for part, until in enumerate((w0, w0 + 15, w0 + 16, seg_end)):
+            seg_losses, seg_n, dt = timed_train(until)
+            train_s += dt
+            losses += seg_losses
+            n_samps += seg_n
+            if part == 1:
+                late_ms = dt / 15 * 1e3
+            elif part == 2:
+                update_ms = dt * 1e3 - late_ms
+        _, p, _ = evaluate()
+        spr = float(torch.stack(n_samps[-MLP_EVAL_EVERY:]).float().mean()) / MLP_RAYS
+        occupied = float(run.occ_state.binaries.float().mean())
+        curve.append(dict(step=run.step, psnr=p, train_s=train_s))
+        print(f"mlp: step={run.step} psnr={p:.4f} train_s={train_s:.3f} samples/ray {spr:.2f} "
+              f"occupied cells {100 * occupied:.2f}%", flush=True)
+    n_timed = run.step
+    peak = torch.cuda.max_memory_allocated()
+    total = int(torch.stack(n_samps).sum())
+    n_updates = (n_timed + cli.OCC_EVERY - 1) // cli.OCC_EVERY
+    want = dict.fromkeys(counted, 0)
+    want.update(K1=k1_per_step * n_timed, K3=n_updates)
+    if launches != want:
+        fail(f"mlp: launches {launches} over {n_timed} steps and {n_updates} updates, expected {want}")
+    first, last = float(losses[0]), float(losses[-1])
+    if not all(math.isfinite(float(x)) for x in losses):
+        fail("mlp: a loss is not finite")
+
+    stages = ("fetch", "traverse_and_compact", "field_forward", "rendering", "backward", "optimizer", "occ_update")
+    prof = profile_window(lambda: cli.train(run, train_ds, run.step + 3), stages,
+                          f"mlp (3 steps from step {run.step})", "profile_train_mlp.txt")
+    gather_ms = sum(ms for name, (ms, _) in prof["kernels"].items() if "indexing_backward" in name)
+    gemm_ms = sum(ms for name, (ms, _) in prof["kernels"].items() if "gemm" in name)
+    print(f"mlp profile: the scan's segment-start gather backward (scan.py:_seg_sums, indexing_backward_kernel) "
+          f"{gather_ms:.3f} ms of {prof['busy_ms']:.3f} ms device time over 3 steps "
+          f"({100 * gather_ms / prof['busy_ms']:.1f}%); the field's GEMMs (cuBLAS, float32) {gemm_ms:.3f} ms "
+          f"({100 * gemm_ms / prof['busy_ms']:.1f}%)", flush=True)
+    k1 = k1_on_train_inputs(lambda: cli.train(run, train_ds, run.step + 1), run.occ_state)
+
+    def update():
+        cli.occ_update(run, warmup=False)
+
+    k3 = k3_on_update_inputs(update, dev)
+    img, p_final, eval_s = evaluate()
+    if not bool(torch.isfinite(img).all()) or not (0.0 <= float(img.min()) and float(img.max()) <= 1.0):
+        fail("mlp: the eval image is not finite or outside [0, 1]")
+    m = eval_metrics(img, test["pixels"])
+    spr = total / n_timed / MLP_RAYS
+    print(json.dumps({"mlp": {
+        "card": card_line, "params": n_params, "steps": n_timed, "train_s": train_s,
+        "late_step_ms": late_ms, "update_ms": update_ms, "samples_per_s": total / train_s,
+        "rays_per_s": n_timed * MLP_RAYS / train_s, "samples_per_ray": spr,
+        "occupied": float(run.occ_state.binaries.float().mean()), "peak_bytes": peak,
+        "loss_first": first, "loss_last": last, "eval_rays_per_s": QUALITY_SIZE ** 2 / eval_s, "final": m,
+        "psnr_curve": curve, "k1_per_step": k1_per_step, "launches": {"K1": launches["K1"], "K3": launches["K3"]},
+        "gather_backward_ms_3_steps": gather_ms, "gemm_ms_3_steps": gemm_ms, "device_ms_3_steps": prof["busy_ms"],
+    }}), flush=True)
+    print(f"mlp: {n_timed} steps in {train_s:.3f} s, late step {late_ms:.2f} ms, update {update_ms:.2f} ms, "
+          f"{total / train_s:.1f} kept samples/s, {n_timed * MLP_RAYS / train_s:.1f} rays/s, {spr:.2f} samples a ray, "
+          f"loss first {first:.6f} last {last:.6f}, eval view {QUALITY_SIZE ** 2 / eval_s:.1f} rays/s PSNR "
+          f"{m['psnr']:.4f} SSIM {m['ssim']:.4f}; K1 {launches['K1']} ({k1_per_step} a step), K3 {launches['K3']} "
+          f"({n_updates} updates); max_memory_allocated {peak} B", flush=True)
+    # A step's loss follows its batch: the field learns when the last 16
+    # steps' mean loss is below the first 16 steps'.
+    if not float(torch.stack(losses[-16:]).mean()) < float(torch.stack(losses[:16]).mean()):
+        fail(f"mlp: the loss does not fall (first {first}, last {last})")
+    if m["psnr"] < MLP_GATE_DB:
+        fail(f"mlp: final PSNR {m['psnr']:.3f} dB is under {MLP_GATE_DB} dB")
+
+    # One step at 256 rays, card against CPU (see MLP_GRAD_TOL).
+    batch = train_ds[run.step]
+    sel = slice(0, MLP_CPU_RAYS)
+    jitter = torch.from_numpy(np.random.default_rng(13).random(MLP_CPU_RAYS, dtype=np.float32))
+    args = (batch["rays"].origins[sel], batch["rays"].viewdirs[sel], batch["pixels"][sel], batch["color_bkgd"])
+    probe = new_run(0)  # the initial weights, on the trained grid
+    probe.occ_state = run.occ_state
+    mlp_card_vs_cpu("vanilla NeRF", cli.train_step, lambda device: VanillaNeRFRadianceField(device=device), probe,
+                    tuple(t.cpu() for t in args) + (jitter,))
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k3=k3)
+
+
+def train_tnerf(dev) -> None:
+    """Phase 14: ``train_mlp_tnerf``'s T-NeRF (``TNERF_*``) trained through
+    its own ``train`` for 200 steps on the dynamic procedural scene, with K1
+    and K3 counted; then one NDR step and one T-NeRF step at 256 rays, card
+    against CPU."""
+    from nerfacc_tpu_torch.datasets.procedural import make_dynamic_loaders
+    from nerfacc_tpu_torch.examples import train_mlp_nerf as mlp_cli
+    from nerfacc_tpu_torch.examples import train_mlp_tnerf as cli
+    from nerfacc_tpu_torch.models.mlp import NDRTNeRFRadianceField, TNeRFRadianceField
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+    from nerfacc_tpu_torch.ops.table_grad import cell_max
+
+    t_phase = time.perf_counter()
+    train_ds, _ = make_dynamic_loaders(num_rays=MLP_RAYS, width=TNERF_SIZE, height=TNERF_SIZE,
+                                       n_train=TNERF_TRAIN_VIEWS, n_test=1, device=dev)
+    cfg = dict(mlp_cli.build_config(procedural=False, smoke=False), sample_capacity=MLP_RAYS * cli.SAMPLES_PER_RAY)
+    cli.train(mlp_run(mlp_cli, cfg, TNeRFRadianceField(device=dev), dev, 1), train_ds, 2)  # warm-up
+    run = mlp_run(mlp_cli, cfg, TNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(0)), dev)
+    _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], 0.0, cfg["near_plane"])
+    occupancy_query.launches = cell_max.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, n_samp = cli.train(run, train_ds, TNERF_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_updates = (TNERF_STEPS + mlp_cli.OCC_EVERY - 1) // mlp_cli.OCC_EVERY
+    launches = {"K1": occupancy_query.launches, "K3": cell_max.launches}
+    # Then 15 steps between two updates on the clock.
+    cli.train(run, train_ds, (run.step // mlp_cli.OCC_EVERY + 1) * mlp_cli.OCC_EVERY + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.train(run, train_ds, run.step + 15)
+    torch.cuda.synchronize()
+    late_ms = (time.perf_counter() - t0) / 15 * 1e3
+    total = int(torch.stack(n_samp).sum())
+    first, last = float(losses[0]), float(losses[-1])
+    print(f"tnerf: {TNERF_STEPS} steps in {dt:.3f} s ({dt / TNERF_STEPS * 1e3:.2f} ms a step with its updates), "
+          f"late step {late_ms:.2f} ms, {TNERF_STEPS * MLP_RAYS / dt:.1f} rays/s, {total / dt:.1f} kept samples/s, "
+          f"{total / TNERF_STEPS / MLP_RAYS:.2f} samples a ray, loss first {first:.6f} last {last:.6f}; "
+          f"K1 {launches['K1']} ({1 + int(use_skip)} a step), K3 {launches['K3']} ({n_updates} updates)", flush=True)
+    if launches != {"K1": (1 + int(use_skip)) * TNERF_STEPS, "K3": n_updates}:
+        fail(f"tnerf: launches {launches} over {TNERF_STEPS} steps and {n_updates} updates")
+    if not all(math.isfinite(float(x)) for x in losses) or not (
+            float(torch.stack(losses[-16:]).mean()) < float(torch.stack(losses[:16]).mean())):
+        fail(f"tnerf: losses not finite or not falling (first {first}, last {last})")
+
+    batch = train_ds[run.step]
+    sel = slice(0, MLP_CPU_RAYS)
+    jitter = torch.from_numpy(np.random.default_rng(14).random(MLP_CPU_RAYS, dtype=np.float32))
+    args = tuple(t.cpu() for t in (batch["rays"].origins[sel], batch["rays"].viewdirs[sel], batch["timestamps"][sel],
+                                   batch["pixels"][sel], batch["color_bkgd"])) + (jitter,)
+    tnerf = mlp_run(mlp_cli, cfg, TNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(0)), dev)
+    tnerf.occ_state = run.occ_state  # the initial weights, on the trained grid
+    mlp_card_vs_cpu("T-NeRF", cli.train_step, lambda device: TNeRFRadianceField(device=device), tnerf, args)
+    ndr = mlp_run(mlp_cli, cfg, NDRTNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(2)), dev)
+    ndr.occ_state = run.occ_state
+    mlp_card_vs_cpu("NDR", cli.train_step, lambda device: NDRTNeRFRadianceField(device=device), ndr, args,
+                    grad_tol=NDR_GRAD_TOL)
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def k1_render_inputs(dev, rng) -> tuple:
     """K1 at the render shape: the estimator and its state on the shell,
     the level-0 box, and 4096 rays x a 256-step window of query positions,
@@ -2127,7 +2478,7 @@ def serve(dev, est, state, crop: bool) -> float:
     return n_rays / dt
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -2233,6 +2584,12 @@ def main(argv=None) -> None:
               + f"; serve {quality['serve_rays_s']:.1f} rays/s on the trained grid"
               + (f" (phase 3, random field: {serve_rays_s:.1f})" if 3 in run else ""), flush=True)
 
+    # ---- 13. the vanilla NeRF, trained; 14. T-NeRF and NDR ---------------
+    if 13 in run:
+        mlp = train_mlp(dev, card_line)
+    if 14 in run:
+        train_tnerf(dev)
+
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
         # K1's launches here are the fused train path's (phase 6); the serve
@@ -2256,6 +2613,10 @@ def main(argv=None) -> None:
                 ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),
                 ("table_grad_sorted", "K5", "table_grad_sorted.cu", "245", route_launches["pallas bf16"]),
                 ("table_grad_pos", "K6", "table_grad_pos.cu", "1488", grouped_launches["K6"]),
+                ("table_grad_pos_split2", "K6-F2-split2", "table_grad_pos.cu", "1488",
+                 route_launches["grouped bf16 split 2"]),
+                ("table_grad_pos_split8", "K6-F2-split8", "table_grad_pos.cu", "1488",
+                 route_launches["grouped bf16 split 8"]),
                 ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
             )
         ] + [
@@ -2283,6 +2644,15 @@ def main(argv=None) -> None:
             kernel_row("table_grad_u10_quality", src + "table_grad_u10.cu", tg_py + "749",
                        quality["launches"]["K2"], quality["k2"]["err"], quality["k2"]["ms"],
                        quality["k2"]["plain_ms"], quality["k2"]["bytes"], quality["k2"]["ops"], None),
+            # K1 and K3 on the vanilla NeRF's path (phase 13), each on its own
+            # inputs (one late step's queries, one update's draws).
+            kernel_row("occupancy_query_mlp", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       mlp["launches"]["K1"], mlp["k1"]["err"], mlp["k1"]["lattice"]["ms"],
+                       mlp["k1"]["lattice"]["plain_ms"], mlp["k1"]["lattice"]["bytes"], mlp["k1"]["lattice"]["ops"],
+                       None),
+            kernel_row("cell_max_mlp", src + "cell_max.cu", tg_py + "1918", mlp["launches"]["K3"], mlp["k3"]["err"],
+                       mlp["k3"]["ms"], mlp["k3"]["plain_ms"], mlp["k3"]["bytes"], mlp["k3"]["ops"],
+                       mlp["k3"]["library_ms"]),
         ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

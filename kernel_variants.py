@@ -105,11 +105,13 @@ K4_TILE_CHECK = "  if (tile != Stage::kSamples ||"
 K4_F32_TILE = "constexpr int kTileF32 = 128;"
 K4_F32_BLOCKS = "constexpr int kBlocksPerSmF32 = 8;"
 K4_BF16_BLOCKS = "constexpr int kBlocksPerSmBf16 = 8;"
-K6_WALK = "  // ---- 2. the walk: warp w sums pairs [sb, se) of the tile ----------------\n"
+K6_WALK = "  // ---- 2. the walk: walker v sums pairs [sb, se) of the tile --------------\n"
 K6_STAGE_ONLY = K6_WALK + (
+    "  constexpr int kWarpPairs = kTile / (kThreads / 32);\n"
     "  if ((tid & 31) == 0 && (tid >> 5) * kWarpPairs < count) {\n"
-    "    out[blockIdx.x * 8 + (tid >> 5)] = __uint_as_float(st.w[(tid >> 5) * 16][0].x) +\n"
-    "        static_cast<float>(st.dst[(tid >> 5) * kWarpPairs]) + __uint_as_float(st.d[(tid >> 5) * 16][0].x);\n"
+    "    const int q0 = (tid >> 5) * kWarpPairs / 4;\n"
+    "    out[blockIdx.x * 8 + (tid >> 5)] = __uint_as_float(st.w[q0][0].x) +\n"
+    "        static_cast<float>(st.dst[4 * q0]) + __uint_as_float(st.d[q0][0].x);\n"
     "  }\n"
     "  return;\n"
 )
@@ -254,10 +256,10 @@ VARIANTS = {
             ("q[m] = __ldg(pos + s);", "q[m] = make_float4(__ldg(xs + s), __ldg(ys + s), __ldg(zs + s), 0.f);"),
             ("const float4* pos,\n           const void* dout,",
              "const float4* pos, const float* xs, const float* ys, const float* zs,\n           const void* dout,"),
-            ("sorted_key, perm, pos, static_cast", "sorted_key, perm, pos, xs, ys, zs, static_cast"),
+            ("sorted_key, perm, pos, dout, out,", "sorted_key, perm, pos, xs, ys, zs, dout, out,"),
             ("(sorted_key, perm, p4, dout,", "(sorted_key, perm, p4, xs, ys, zs, dout,"),
         )),
-        ("in-order cotangents", False, (("dv[m] = __ldg(dout + p[m]);", "dv[m] = __ldg(dout + begin + i);"),)),
+        ("in-order cotangents", False, (("load_cot<C>(dout, p[m], dv[m]);", "load_cot<C>(dout, begin + i, dv[m]);"),)),
     )),
 }
 
@@ -422,7 +424,7 @@ def k6_run(dev):
     def run(lib):
         pos = torch.empty((n, 4), dtype=torch.float32, device=dev)
         return tg._launch(lib, "table_grad_pos_launch", (sorted_key, perm, xs, ys, zs, pos, dout), n_rows,
-                          n, nf, jg, F, tg.ROW_WIDTH // (8 * F), res, j_lo, key, span=tg.K6_TILE)
+                          n, nf, jg, F, tg.ROW_WIDTH // (8 * F), res, j_lo, key, span=None)
 
     argtypes = tg._table_grad_pos_lib().table_grad_pos_launch.argtypes
     return {"": (run, tg.table_grad_pos_plain(*args))}, {"table_grad_pos_launch": argtypes}, _zeros_aside(n_rows, dev)

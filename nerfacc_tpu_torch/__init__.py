@@ -27,7 +27,62 @@ takes the radiance field's table gradient through the same kernels; and
 what a user trains and evaluates with: the procedural scene and the
 NeRF-Synthetic loader (:mod:`~nerfacc_tpu_torch.datasets`), image metrics
 and checkpoints (:mod:`~nerfacc_tpu_torch.utils`), and the NGP train and
-render CLIs (``python -m nerfacc_tpu_torch.examples.<name>``).
+render CLIs (``python -m nerfacc_tpu_torch.examples.<name>``); the
+vanilla-NeRF MLP family (:mod:`~nerfacc_tpu_torch.models.mlp`, with T-NeRF
+and NDR on the dynamic procedural scene and the D-NeRF loader) and its two
+CLIs; and the OpenCV lens undistortion (:mod:`~nerfacc_tpu_torch.cameras`).
+
+The names below are the JAX package's public surface
+(``nerfacc_tpu/__init__.py``), under the same names.
 """
 
 __version__ = "0.1.0"
+
+from .cameras import opencv_lens_undistortion, opencv_lens_undistortion_fisheye
+from .data_specs import RayIntervals, RaySamples
+from .estimators.occ_grid import OccGridEstimator, OccGridState
+from .estimators.prop_net import PropNetEstimator, get_proposal_requires_grad_fn
+from .grid import TraversalResults, ray_aabb_intersect, traverse_grids
+from .pack import pack_info
+from .pdf import importance_sampling, searchsorted
+from .scan import exclusive_prod, exclusive_sum, inclusive_prod, inclusive_sum
+from .volrend import (
+    accumulate_along_rays,
+    render_transmittance_from_alpha,
+    render_transmittance_from_density,
+    render_visibility_from_alpha,
+    render_visibility_from_density,
+    render_weight_from_alpha,
+    render_weight_from_density,
+    rendering,
+)
+
+__all__ = [
+    "__version__",
+    "inclusive_prod",
+    "exclusive_prod",
+    "inclusive_sum",
+    "exclusive_sum",
+    "pack_info",
+    "render_visibility_from_alpha",
+    "render_visibility_from_density",
+    "render_weight_from_alpha",
+    "render_weight_from_density",
+    "render_transmittance_from_alpha",
+    "render_transmittance_from_density",
+    "accumulate_along_rays",
+    "rendering",
+    "importance_sampling",
+    "searchsorted",
+    "RayIntervals",
+    "RaySamples",
+    "ray_aabb_intersect",
+    "traverse_grids",
+    "TraversalResults",
+    "OccGridEstimator",
+    "OccGridState",
+    "PropNetEstimator",
+    "get_proposal_requires_grad_fn",
+    "opencv_lens_undistortion",
+    "opencv_lens_undistortion_fisheye",
+]

@@ -41,6 +41,36 @@ def field_from_jax(params: Mapping) -> dict:
     return state
 
 
+def mlp_field_from_jax(params: Mapping) -> dict:
+    """``state_dict`` for :class:`~nerfacc_tpu_torch.models.mlp.VanillaNeRFRadianceField`,
+    :class:`~nerfacc_tpu_torch.models.mlp.TNeRFRadianceField` or
+    :class:`~nerfacc_tpu_torch.models.mlp.NDRTNeRFRadianceField` (or any
+    module of ``models/mlp.py``) from the flax parameters of the JAX class of
+    the same name, with or without the outer ``{"params": ...}`` level.
+
+    flax names an ``MLP``'s dense layers ``Dense_0``, ``Dense_1``, ... in
+    call order, the port's ``layers.0``, ``layers.1``, ...; a list of
+    submodules ``warp_layers_1 = [...]`` is ``warp_layers_1_0``, ... in
+    flax and the ``nn.ModuleList`` ``warp_layers_1.0``, ... in the port.
+    ``Dense`` kernels are ``(in, out)``, ``nn.Linear`` weights their
+    transpose.
+    """
+    state = {}
+
+    def walk(tree: Mapping, path: tuple) -> None:
+        for name, sub in tree.items():
+            if "kernel" in sub:
+                prefix = ".".join(path + ("layers", name.split("_")[1]))
+                state[f"{prefix}.weight"] = torch.from_numpy(np.array(sub["kernel"], dtype=np.float32).T.copy())
+                state[f"{prefix}.bias"] = torch.from_numpy(np.array(sub["bias"], dtype=np.float32))
+            else:
+                head, _, index = name.rpartition("_")
+                walk(sub, path + ((head, index) if head and index.isdigit() else (name,)))
+
+    walk(params.get("params", params), ())
+    return state
+
+
 def occ_state_from_jax(
     estimator: OccGridEstimator,
     state,

@@ -1,4 +1,4 @@
-"""Datasets: camera rays, the NeRF-Synthetic loader and the procedural scene."""
+"""Datasets: camera rays, the NeRF-Synthetic and D-NeRF loaders and the procedural scenes."""
 
 from .utils import Rays, generate_rays, namedtuple_map
 

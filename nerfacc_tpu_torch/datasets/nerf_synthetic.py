@@ -147,6 +147,7 @@ class SubjectLoader:
             xx, yy = np.meshgrid(np.arange(self.WIDTH), np.arange(self.HEIGHT))
             x, y = xx.reshape(-1), yy.reshape(-1)
 
+        self._last_image_id = image_id  # each ray's view, for the dynamic loader's timestamps
         rgba = self.images[image_id, y, x].astype(np.float32) / 255.0
         c2w = self.camtoworlds[image_id, :3, :4]
         origins, viewdirs = camera_rays(

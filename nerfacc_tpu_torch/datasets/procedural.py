@@ -1,16 +1,17 @@
 """The procedural analytic scene ("jelly" blobs) and its exact renders.
 
-Port of ``nerfacc_tpu/datasets/procedural.py:22-197,306-341``: an analytic
-emissive density field rendered to RGBA images by dense ray marching, which
-gives the repository a training target that needs no download.  The views
-are rendered on ``device``; poses and rays are made in numpy from the same
-seed as the JAX package's, so both packages render from the same rays.
-The dynamic (time-varying) scene (``:200-305``) is not ported yet.
+Port of ``nerfacc_tpu/datasets/procedural.py``: an analytic emissive
+density field rendered to RGBA images by dense ray marching, which gives the
+repository a training target that needs no download, and its dynamic
+variant, whose blobs orbit with time (the T-NeRF target).  The views are
+rendered on ``device``; poses and rays are made in numpy from the same seed
+as the JAX package's, so both packages render from the same rays.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import math
+from typing import Callable, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ from ..device import resolve_device
 from .utils import camera_rays
 
 Tensor = torch.Tensor
+Scene = Callable[[Tensor], Tuple[Tensor, Tensor]]  # points (..., 3) -> (rgb (..., 3), density (...))
 
 # Scene definition: gaussian-ish blobs (center, radius, density, rgb).
 _BLOBS = np.array(
@@ -91,17 +93,16 @@ def scene_rgb_density(x: Tensor, detail: float = 0.0) -> Tuple[Tensor, Tensor]:
 
 @torch.no_grad()
 def _render_pose_chunk(
-    origins: Tensor, viewdirs: Tensor, near: float, far: float, detail: float = 0.0,
-    n_steps: int = 512,
+    origins: Tensor, viewdirs: Tensor, near: float, far: float, scene: Scene, n_steps: int = 512,
 ) -> Tuple[Tensor, Tensor]:
-    """``(color (n, 3), opacity (n, 1))`` of rays ``(n, 3)``: ``n_steps``
-    midpoint samples between ``near`` and ``far``, exclusive-cumsum
-    transmittance."""
+    """``(color (n, 3), opacity (n, 1))`` of rays ``(n, 3)`` through
+    ``scene(x) -> (rgb, density)``: ``n_steps`` midpoint samples between
+    ``near`` and ``far``, exclusive-cumsum transmittance."""
     t = torch.from_numpy(np.linspace(near, far, n_steps + 1).astype(np.float32)).to(origins.device)
     t0, t1 = t[:-1], t[1:]
     tm = (t0 + t1) / 2.0
     x = origins[:, None, :] + tm[None, :, None] * viewdirs[:, None, :]
-    rgbs, sigmas = scene_rgb_density(x, detail)
+    rgbs, sigmas = scene(x)
     sdt = sigmas * (t1 - t0)[None, :]
     alphas = 1.0 - torch.exp(-sdt)
     trans = torch.exp(-torch.cumsum(torch.nn.functional.pad(sdt, (1, 0))[:, :-1], dim=-1))
@@ -123,11 +124,15 @@ def render_pixels(
     compiled shape; eager PyTorch has no shape to keep and each ray is
     rendered alone, so the last chunk is not padded.
     """
-    device = resolve_device(device)
+    return _render_pixels(c2w, K, x, y, radius, lambda p: scene_rgb_density(p, detail), resolve_device(device))
+
+
+def _render_pixels(c2w, K, x, y, radius: float, scene: Scene, device: torch.device) -> np.ndarray:
+    """:func:`render_pixels` through ``scene(x) -> (rgb, density)``."""
     o, d = camera_rays(x.astype(np.float32), y.astype(np.float32), K, c2w[:3, :4], opengl=True)
     o, d = torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
     parts = [
-        torch.cat(_render_pose_chunk(o[j : j + CHUNK], d[j : j + CHUNK], radius - 1.2, radius + 1.2, detail), -1)
+        torch.cat(_render_pose_chunk(o[j : j + CHUNK], d[j : j + CHUNK], radius - 1.2, radius + 1.2, scene), -1)
         for j in range(0, o.shape[0], CHUNK)
     ]
     rgba = torch.cat(parts).cpu().numpy()
@@ -194,6 +199,70 @@ def generate_dataset(
     train_images, train_c2w = render_split(n_train, 0.0)
     test_images, test_c2w = render_split(n_test, 0.3)
     return train_images, train_c2w, test_images, test_c2w, 0.9 * width
+
+
+def scene_rgb_density_t(x: Tensor, t: Union[float, Tensor]) -> Tuple[Tensor, Tensor]:
+    """The time-animated scene (``procedural.py:200-228``): the blobs'
+    centres turn about the z axis by ``0.6 sin(2 pi t)`` at time ``t`` in
+    ``[0, 1]`` (a number, or a tensor of ``x.shape[:-1]``).  Returns
+    ``(rgb (..., 3), density (...))``, without the static scene's shading."""
+    b = torch.from_numpy(_BLOBS).to(x.device)
+    ang = 0.6 * torch.sin(2 * math.pi * torch.as_tensor(t, dtype=x.dtype, device=x.device))[..., None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    cx = cos * b[:, 0] - sin * b[:, 1]
+    cy = sin * b[:, 0] + cos * b[:, 1]
+    dist2 = (x[..., 0:1] - cx) ** 2 + (x[..., 1:2] - cy) ** 2 + (x[..., 2:3] - b[:, 2]) ** 2
+    u = (1.0 - dist2 / (b[:, 3] ** 2)).clamp(min=0.0)
+    w = b[:, 4] * u * u  # (..., B)
+    sigma = w.sum(-1)
+    rgb = b[:, 5:8]
+    colors = sum(w[..., j : j + 1] * rgb[j] for j in range(rgb.shape[0])) / sigma[..., None].clamp(min=1e-8)
+    return colors.clamp(0.0, 1.0), sigma
+
+
+def make_dynamic_loaders(
+    num_rays: int = 1024,
+    width: int = 96,
+    height: int = 96,
+    n_train: int = 24,
+    n_test: int = 2,
+    radius: float = 2.5,
+    *,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Procedural dynamic train and test
+    :class:`~nerfacc_tpu_torch.datasets.dnerf_synthetic.SubjectLoader`\\ s
+    (``procedural.py:250-305``): view ``i`` of a split shows time ``i /
+    (n - 1)`` from the pose ring, rendered on ``device`` in chunks of
+    :data:`CHUNK` rays; near 1.3, far 3.7.  The pose jitter comes from numpy's
+    ``default_rng(0)``, as in the JAX package."""
+    from .dnerf_synthetic import SubjectLoader as DynLoader
+
+    device = resolve_device(device)
+    K = intrinsics(width, height)
+    rng = np.random.default_rng(0)
+    xx, yy = np.meshgrid(np.arange(width), np.arange(height))
+    xx, yy = xx.reshape(-1), yy.reshape(-1)
+
+    def render_split(n_views, phase):
+        images, poses, times = [], [], []
+        for i in range(n_views):
+            t = float(np.float32(i / max(n_views - 1, 1)))
+            theta = 2 * np.pi * (i / n_views) + phase
+            phi = -np.pi / 5 - 0.4 * rng.random()
+            c2w = pose_spherical(theta, phi, radius)
+            rgba = _render_pixels(c2w, K, xx, yy, radius, lambda p: scene_rgb_density_t(p, t), device)
+            images.append(rgba.reshape(height, width, 4))
+            poses.append(c2w)
+            times.append(t)
+        return np.stack(images), np.stack(poses), np.asarray(times, np.float32)
+
+    tr_im, tr_c2w, tr_t = render_split(n_train, 0.0)
+    te_im, te_c2w, te_t = render_split(n_test, 0.3)
+    common = dict(focal=0.9 * width, near=NEAR, far=FAR, device=device)
+    train = DynLoader(split="train", num_rays=num_rays, images=tr_im, camtoworlds=tr_c2w, timestamps=tr_t, **common)
+    test = DynLoader(split="test", images=te_im, camtoworlds=te_c2w, timestamps=te_t, **common)
+    return train, test
 
 
 def make_loaders(

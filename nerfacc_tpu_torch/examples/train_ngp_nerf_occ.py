@@ -50,6 +50,7 @@ NOT_PORTED = {
     "folded": "ROADMAP Queue 1 item 6",
     "tensorf": "ROADMAP Queue 1 item 8",
     "kplanes": "ROADMAP Queue 1 item 8",
+    "tineuvox": "ROADMAP Queue 1 item 8",
 }
 
 OCC_EVERY = 16  # steps between occupancy updates

@@ -116,12 +116,10 @@ def u10_corner_weights(wq: Tensor) -> Tensor:
 # csrc/sorted_rows.cuh, reduces one contiguous span of sorted samples.
 _SPAN = 128
 # Samples per block of K2 (``kTile`` in csrc/table_grad_u10.cu) and of K4 by
-# input type (``kTileBf16``, ``kTileF32`` in csrc/table_grad.cu), and pairs
-# per block of K6 (``kTile`` in csrc/table_grad_pos.cu); each kernel refuses
-# any other value.
+# input type (``kTileBf16``, ``kTileF32`` in csrc/table_grad.cu); each kernel
+# refuses any other value.  K6 sizes its own tiles by the fetch's window.
 K2_TILE = 256
 K4_TILE = {torch.bfloat16: 256, torch.float32: 128}
-K6_TILE = 512
 _P = ctypes.c_void_p
 
 
@@ -149,15 +147,17 @@ def _table_grad_lib():
     ))
 
 
-def _launch(lib, fn_name: str, tensors, n_rows: int, *extra, span: int = _SPAN) -> Tensor:
+def _launch(lib, fn_name: str, tensors, n_rows: int, *extra, span: Optional[int] = _SPAN) -> Tensor:
     """Call ``fn_name(*pointers, out, n, span, *extra, stream)`` on a zeroed
-    ``(n_rows, 128)`` float32 output; ``tensors[0]`` is the sorted key."""
+    ``(n_rows, 128)`` float32 output (no ``span`` argument where it is
+    None); ``tensors[0]`` is the sorted key."""
     device = tensors[0].device
     out = torch.zeros((n_rows, ROW_WIDTH), dtype=torch.float32, device=device)
+    spans = () if span is None else (span,)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(
-            *[t.data_ptr() for t in tensors], out.data_ptr(), tensors[0].shape[0], span,
+            *[t.data_ptr() for t in tensors], out.data_ptr(), tensors[0].shape[0], *spans,
             *extra, stream,
         )
     _build.check(lib, rc, fn_name)
@@ -612,7 +612,7 @@ def table_grad_pos_plain(
 def _table_grad_pos_lib():
     ci, cll = ctypes.c_int, ctypes.c_longlong
     return _lib("table_grad_pos", (
-        ("table_grad_pos_launch", (_P,) * 8 + (cll, ci, cll, ci, ci, ci, ci)
+        ("table_grad_pos_launch", (_P,) * 8 + (cll, cll, ci, ci, ci, ci)
          + (ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ci), ctypes.POINTER(ci), _P)),
     ))
 
@@ -627,22 +627,27 @@ def table_grad_pos(
     (``sorted_key`` int32, ``row * n_fetches + fetch``), the permutation
     that sorted them (``perm`` int64, into the fetch-major pairs), the
     float32 positions ``xs, ys, zs (n,)`` and ``dout (n_fetches * n, jg *
-    F)`` bf16.  One launch covers every fetch; a block stages
-    :data:`K6_TILE` pairs' weights and cotangents, and each fetch's 32
-    active columns are one warp's lanes as it walks them
-    (``8 * jg * F == 32``).  The kernel stores, not adds, a run that no
-    other warp holds part of, so it refuses fetches that share a span and a
-    window (:func:`shared_windows`), whose terms the plain version would
-    sum; the encoder's fetches never do (each reads its own span's rows or
-    its own window).  A CPU tensor takes :func:`table_grad_pos_plain` (with
-    ``consts``); a CUDA tensor launches the kernel or raises."""
+    F)`` bf16.  One launch covers every fetch; a block stages a tile of
+    pairs' weights and cotangents, and a walker of ``min(32, 8 jg F)``
+    lanes walks the tile's pairs, the ``8 jg F`` active columns of a fetch
+    spread over its lanes.  The kernel takes every window the grouped
+    encoder builds: ``jg * F`` in 1, 2, 4, 8 and 16 (every ``keys_per_row``
+    dividing ``J``, for every ``F``), and at most 32 fetches.  It stores,
+    not adds, a run that no other walker holds part of, so it refuses
+    fetches that share a span and a window (:func:`shared_windows`), whose
+    terms the plain version would sum; the encoder's fetches never do (each
+    reads its own span's rows or its own window).  A CPU tensor takes
+    :func:`table_grad_pos_plain` (with ``consts``); a CUDA tensor launches
+    the kernel or raises."""
     if dout.device.type == "cpu":
         return table_grad_pos_plain(sorted_key, perm, xs, ys, zs, dout, n_rows, fetches, F, consts)
     name = "table_grad_pos"
     J, jg = _check_fetches(fetches, F)
     nf, n = len(fetches), xs.shape[0]
-    if 8 * jg * F != 32 or nf > 32:
-        raise ValueError(f"{name}: the kernel takes 32 active columns a fetch and at most 32 fetches")
+    cols = jg * F
+    if cols & (cols - 1) or nf > 32:
+        raise ValueError(f"{name}: the kernel takes jg * F in (1, 2, 4, 8, 16) and at most 32 fetches, "
+                         f"got jg * F = {cols} and {nf} fetches")
     shared = shared_windows(fetches)
     if shared:
         raise ValueError(f"{name}: fetches share the (span, j_lo) windows {shared}; the kernel cannot sum them")
@@ -655,15 +660,15 @@ def table_grad_pos(
     for what, t in (("xs", xs), ("ys", ys), ("zs", zs)):
         _check_operand(name, what, t, (torch.float32,), (n,), dev)
     _check_operand(name, "dout", dout, (torch.bfloat16,), (nf * n, jg * F), dev)
-    if dout.data_ptr() % 8:
-        raise ValueError(f"{name}: dout must be 8-byte aligned (one 8-byte load a pair)")
+    if dout.data_ptr() % min(16, 2 * cols):
+        raise ValueError(f"{name}: dout must be {min(16, 2 * cols)}-byte aligned (its rows are read whole)")
     res = (ctypes.c_float * (nf * jg))(*[float(r) for f in fetches for r in f.res])
     j_lo = (ctypes.c_int * nf)(*[f.j_lo for f in fetches])
     key = (ctypes.c_int * nf)(*[f.key for f in fetches])
     pos = torch.empty((n, 4), dtype=torch.float32, device=dev)  # the kernel packs the positions here
     out = _launch(
         _table_grad_pos_lib(), "table_grad_pos_launch", (sorted_key, perm, xs, ys, zs, pos, dout), n_rows,
-        n, nf, jg, F, J, res, j_lo, key, span=K6_TILE,
+        n, nf, jg, F, J, res, j_lo, key, span=None,
     )
     table_grad_pos.launches += 1
     return out

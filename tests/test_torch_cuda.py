@@ -13,6 +13,8 @@ imports JAX, hence ``--noconftest``)::
 Without a card every test here skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -432,6 +434,9 @@ def test_k4_modes_and_k5_match_plain_versions_on_the_card(cuda, n, n_rows):
         assert not got[untouched].any()
 
 
+# K6's tile at the default split (jg * F = 4; csrc/table_grad_pos.cu,
+# tile_pairs): 512 pairs a block, 64 a warp.
+K6_TILE = 512
 K6_CASES = (
     "encoder-1", "encoder-5000", "encoder-200000",  # the encoder's own pairs
     "one-key",      # every pair on one key: one run over many tiles and blocks
@@ -452,7 +457,6 @@ def _k6_inputs(case, device):
     whether or not they agree on the fetch, so the edge cases are built
     directly."""
     from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
-    from nerfacc_tpu_torch.ops.table_grad import K6_TILE
 
     enc = HashGridEncoderGrouped(log2_hashmap_size=12, device=device)
     nf, n_rows = len(enc.fetches), enc.table.shape[0]
@@ -516,16 +520,55 @@ def test_k6_matches_its_plain_version_on_the_card(cuda, case):
     # Equal weights (the same float32 steps, --fmad=false), the same bf16
     # terms summed in float32 in another order.
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    # A (row, fetch) key writes its row's 32 window columns and nothing
-    # else: every other column, and every row no key names, stays zero.
-    nf = len(fetches)
+    _only_named_columns(got, sorted_key, n_rows, fetches, 2)
+
+
+def _only_named_columns(got, sorted_key, n_rows, fetches, F):
+    """A (row, fetch) key writes its row's ``8 jg F`` window columns and
+    nothing else: every other column, and every row no key names, stays
+    zero."""
+    nf, jg = len(fetches), len(fetches[0].res)
     keys = torch.unique(sorted_key).long().cpu()
     j_lo = torch.tensor([f.j_lo for f in fetches])
-    cols = (torch.arange(8)[:, None] * 16 + torch.arange(4)).reshape(-1)
+    cols = (torch.arange(8)[:, None] * 16 + torch.arange(jg * F)).reshape(-1)
     named = torch.zeros((n_rows, 128), dtype=torch.bool)
-    named[(keys // nf)[:, None], cols + 2 * j_lo[keys % nf][:, None]] = True
+    named[(keys // nf)[:, None], cols + F * j_lo[keys % nf][:, None]] = True
     got = got.cpu()
     assert not got[~named].any() and got[named].any()
+
+
+# Every (F, keys_per_row) the grouped encoder builds (keys_per_row dividing
+# J = 16 / F): windows of 1 to 16 columns a corner.
+EVERY_SPLIT = [(F, k) for F in (1, 2, 4, 8, 16) for k in (1, 2, 4, 8, 16) if (16 // F) % k == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,keys_per_row", EVERY_SPLIT, ids=[f"F{f}-split{k}" for f, k in EVERY_SPLIT])
+def test_k6_matches_its_plain_version_at_every_split(cuda, F, keys_per_row):
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_pos_plain
+
+    enc = HashGridEncoderGrouped(n_features_per_level=F, log2_hashmap_size=12, keys_per_row=keys_per_row,
+                                 device=cuda)
+    nf, jg, n_rows = len(enc.fetches), len(enc.fetches[0].res), enc.table.shape[0]
+    assert enc.split == keys_per_row and jg * F == 16 // keys_per_row
+    rng = np.random.default_rng(EVERY_SPLIT.index((F, keys_per_row)))
+    n = 30011  # not a multiple of any tile
+    pos = torch.from_numpy(rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)).to(cuda)
+    xs, ys, zs = (pos[:, i].contiguous() for i in range(3))
+    rows = enc.fetch_rows(xs, ys, zs)
+    key = (rows * nf + torch.arange(nf, device=cuda)[:, None]).reshape(-1).to(torch.int32)
+    sorted_key, perm = torch.sort(key)
+    scale = rng.choice([1e-3, 1.0], (nf * n, 1))
+    dout = torch.from_numpy((rng.standard_normal((nf * n, jg * F)) * scale).astype(np.float32)).to(cuda)
+    args = (sorted_key, perm, xs, ys, zs, dout.to(torch.bfloat16), n_rows, enc.fetches, F)
+    before = table_grad_pos.launches
+    got = table_grad_pos(*args)
+    assert table_grad_pos.launches == before + 1
+    want = table_grad_pos_plain(*args)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    _only_named_columns(got, sorted_key, n_rows, enc.fetches, F)
 
 
 @pytest.mark.cuda
@@ -546,10 +589,12 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         table_grad_sorted(idx, perm, torch.zeros((8, 64), device=cuda), 16)
     with pytest.raises(ValueError, match="w8"):
         table_grad_w8(idx, perm, torch.zeros((8, 8), device=cuda), torch.zeros((8, 16), device=cuda, dtype=torch.bfloat16), 16)
-    enc = HashGridEncoderGrouped(log2_hashmap_size=9, keys_per_row=2, device=cuda)
+    # A window of three sub-levels (jg * F = 6): no encoder builds one, and
+    # the kernel has no instance for it.
     p = torch.zeros(1, device=cuda)
-    with pytest.raises(ValueError, match="32 active columns"):
-        table_grad_pos(idx, perm, p, p, p, torch.zeros((8, 8), device=cuda, dtype=torch.bfloat16), 1024, enc.fetches, 2)
+    three = (tg.Fetch(span=0, j_lo=0, res=(16, 23, 33), key=0),)
+    with pytest.raises(ValueError, match=r"jg \* F in \(1, 2, 4, 8, 16\)"):
+        table_grad_pos(idx, perm, p, p, p, torch.zeros((8, 6), device=cuda, dtype=torch.bfloat16), 1024, three, 2)
     enc = HashGridEncoderGrouped(log2_hashmap_size=9, device=cuda)
     misaligned = torch.zeros(33, device=cuda, dtype=torch.bfloat16)[1:].view(8, 4)
     with pytest.raises(ValueError, match="8-byte aligned"):
@@ -986,3 +1031,49 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         torch.use_deterministic_algorithms(False)
     assert step == 20 and bool(torch.isfinite(a).all())
     assert float((a - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_mlp_nerf_step_launches_k1_and_its_update_k3(cuda):
+    """train_mlp_nerf's occupancy update and train step at its NeRF-Synthetic
+    grid (res 128 over +-1.5): the warm-up update probes 2^21 cells through
+    K3 once, the post-warm-up one 2^20, and the step's traversal queries K1;
+    the step agrees with the same step on the CPU."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+    from nerfacc_tpu_torch.examples import train_mlp_nerf as cli
+    from nerfacc_tpu_torch.models.mlp import VanillaNeRFRadianceField
+    from nerfacc_tpu_torch.ops.table_grad import cell_max
+
+    rng = np.random.default_rng(0)
+    n = 256
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, pixels, jitter = -3.0 * d, rng.random((n, 3), dtype=np.float32), rng.random(n, dtype=np.float32)
+    cfg = dict(cli.build_config(procedural=False, smoke=False), samples_per_ray=64, sample_capacity=n * 64)
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=1)
+    results, state = [], None
+    for device in (cuda, torch.device("cpu")):
+        field = VanillaNeRFRadianceField(net_depth=2, net_width=32, device=device,
+                                         generator=torch.Generator().manual_seed(0))
+        run = cli.Run(cfg=cfg, field=field, estimator=est, occ_state=est.init(device),
+                      opt=torch.optim.Adam(field.parameters(), lr=cli.LR), generator=torch.Generator())
+        if device.type == "cuda":
+            occupancy_query.launches = cell_max.launches = 0
+            for s, warmup in ((0, True), (1, False)):
+                draws = est.make_draws(s, torch.Generator().manual_seed(s), warmup_steps=1, device=device)
+                cli.occ_update(run, warmup=warmup, draws=draws)
+            state = run.occ_state
+        else:
+            # The CPU steps on the card's grid: the two updates' densities
+            # differ in their last bits, which may flip a cell at the
+            # threshold.
+            run.occ_state = state.replace(**{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)})
+        loss, n_samp = cli.train_step(run, *(torch.from_numpy(a).to(device) for a in (o, d, pixels)),
+                                      torch.ones(3, device=device), torch.from_numpy(jitter).to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert cell_max.launches == 2 and occupancy_query.launches >= 1
+        results.append((float(loss), int(n_samp)))
+    (loss_c, n_c), (loss_h, n_h) = results
+    assert n_c == n_h > 0 and int(state.binaries.sum()) > 0
+    assert loss_c == pytest.approx(loss_h, rel=1e-5)

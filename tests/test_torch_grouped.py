@@ -189,6 +189,50 @@ def test_k6_plain_matches_jax_pos_kernel_for_every_fetch():
     assert (~owned).sum() > 1000 and not got[~owned].any() and got[owned].any()
 
 
+# Every (F, keys_per_row) the grouped encoder builds: F in 1, 2, 4, 8, 16 and
+# keys_per_row dividing J = 16 / F, so windows of jg * F = 16 / keys_per_row
+# columns a corner.
+EVERY_SPLIT = [(F_, k) for F_ in (1, 2, 4, 8, 16) for k in (1, 2, 4, 8, 16) if (16 // F_) % k == 0]
+
+
+@pytest.mark.parametrize("F_,keys_per_row", EVERY_SPLIT, ids=[f"F{f}-split{k}" for f, k in EVERY_SPLIT])
+def test_k6_plain_matches_jax_pos_kernel_at_every_split(F_, keys_per_row):
+    """K6's plain version at every window width against JAX's kernel (in
+    interpret mode) on the last fetch, the one with the last span and the
+    last window of the row; the other fetches of its span write other
+    columns of its rows, which JAX's call of that one fetch leaves zero."""
+    rng = np.random.default_rng(11)
+    n = 256
+    tenc = TEncoder(**dict(SMALL, n_features_per_level=F_), keys_per_row=keys_per_row,
+                    compute_dtype=torch.bfloat16, device="cpu")
+    J, T = 16 // F_, tenc.table_size
+    assert tenc.split == keys_per_row and len(tenc.fetches) == (16 // J) * keys_per_row
+    x = _points(rng, n)
+    pos = [torch.from_numpy(x[:, i].copy()) for i in range(3)]
+    rows = tenc.fetch_rows(*pos)
+    nf, jg = rows.shape[0], J // keys_per_row
+    dout = torch.from_numpy(rng.standard_normal((nf * n, jg * F_)).astype(np.float32)).to(torch.bfloat16)
+    key = (rows * nf + torch.arange(nf)[:, None]).reshape(-1).to(torch.int32)
+    sorted_key, perm = torch.sort(key)
+    got = table_grad_pos(sorted_key, perm, *pos, dout, tenc.table.shape[0], tenc.fetches, F_).numpy()
+
+    g, fe = nf - 1, tenc.fetches[-1]
+    rel = rows[g].numpy() - fe.span * T
+    order = np.argsort(rel, kind="stable")
+    want = np.asarray(table_grad_factors_sorted_pos(
+        jnp.asarray(rel[order].astype(np.int32)), jnp.asarray(np.stack(x.T)[:, order]),
+        jnp.asarray(dout[g * n : (g + 1) * n].float().numpy()[order].T).astype(jnp.bfloat16),
+        n_rows=T, RES=tuple(float(r) for r in fe.res), F=F_, J=J, J_LO=fe.j_lo, JG=jg,
+        KEY_K=fe.key, W=128, CH=128, interpret=True,
+    ))
+    cols = np.array([c * 16 + fe.j_lo * F_ + k for c in range(8) for k in range(jg * F_)])
+    window = got[fe.span * T : (fe.span + 1) * T][:, cols]
+    # The same bf16 terms summed in float32 in another order: atol 1e-6 of
+    # the largest row sum; JAX's call writes nothing outside the window.
+    np.testing.assert_allclose(window, want[:, cols], rtol=0, atol=1e-6 * np.abs(want).max())
+    assert np.abs(want).max() > 0 and not np.delete(want, cols, axis=1).any()
+
+
 @pytest.mark.parametrize("keys_per_row", [4, 2])
 def test_k6_refuses_only_fetches_that_share_a_window(keys_per_row):
     """K6 stores each run that no other warp holds part of, so on the card it

@@ -88,6 +88,27 @@ def test_entry_points_default_to_the_card():
     assert OccGridEstimator(roi_aabb=aabb, resolution=8).init("cpu").binaries.device.type == "cpu"
 
 
+def _all_names(path: Path) -> list:
+    """The string list assigned to ``__all__`` in ``path``, read with ast."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_the_port_exports_the_jax_package_public_names():
+    # The JAX package's list is read from its source, so that this test
+    # imports nothing of JAX.
+    want = _all_names(REPO / "nerfacc_tpu" / "__init__.py")
+    assert len(want) == 27
+    import nerfacc_tpu_torch
+
+    assert nerfacc_tpu_torch.__all__ == want
+    missing = [n for n in want if not hasattr(nerfacc_tpu_torch, n)]
+    assert missing == []
+    assert nerfacc_tpu_torch.inclusive_sum.__module__ == "nerfacc_tpu_torch.scan"
+
+
 def _variants_match_their_source(monkeypatch, kernel, n_variants):
     # kernel_variants.py changes a kernel by text substitutions: each must
     # still find its text, or the script times something else.
