@@ -7,7 +7,7 @@
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
-14 none):
+15 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -121,6 +121,25 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    grid, 1024 rays x 48 slots) for 200 steps on the dynamic procedural
    scene, step ms and rays/s, K1 and K3 counted; one T-NeRF step and one NDR
    step at 256 rays on the card against the CPU.  Needs no other phase.
+15. the other encoders and the structure-of-arrays route: (a) ``bench.py``'s
+   step with ``BENCH_ENCODER=hash BENCH_LEVELS=16 BENCH_FEATS=2
+   BENCH_LOG2T=19`` (tcnn's parametrisation, the table gradient autograd's
+   ``index_add_``) as phase 6 times it, with K1 and K3 on its own inputs, a
+   profile and the share of ``index_add_`` and ``index_select``; (b) phase
+   6's step on the SoA route (``carry_rays``, ``rgb_sigma_soa_fn``,
+   ``soa_positions=True``) held against the array route on the card (the
+   same compaction, loss and table gradient within 1e-6 of its largest
+   entry, the update bit-equal), both timed, K2 once a step and K3 once an
+   update as on the array route, each on the route's own inputs; (c) one
+   step on the card against the CPU for the folded encoder, soa and the
+   fused scatter route, each from four weight seeds (float32: loss rtol
+   1e-5, gradients 3e-4, or 3e-3 at the table entries and ray origins that
+   a sample feeds whose ReLU input changed sign, the ray origins' gradient
+   too) and for chunk-paired levels on the factor (K2) and
+   pallas (K5) routes (bf16: gradients 2e-2, loss 1e-5), then 30 timed
+   folded steps; (d) ``traverse_grids``' macro-skip branch on phase 3's grid
+   against its dense branch, K1's skip probes exact and counted.  Needs no
+   other phase.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -396,19 +415,26 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
 
 
 def train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, capacity, render_kw=None,
-               sigma_fn=None):
+               sigma_fn=None, soa=False, paired_levels=0):
     """One step of bench.py's train loop: render, Huber loss, backward, Adam.
     ``render_kw`` replaces bench.py's traversal settings; ``sigma_fn`` (a
     wrapper of the field's density, see :func:`density_fn`) turns on the
-    visibility filter where ``render_kw`` sets ``alpha_thre``.  Returns the
-    loss and the kept-sample count, both on the device, and the renderer's
-    extras."""
+    visibility filter where ``render_kw`` sets ``alpha_thre``.  ``soa`` takes
+    the structure-of-arrays route (``BENCH_SOA``: the traversal adds each
+    slot's ray components and the field gets ``(xs, ys, zs)`` tuples);
+    ``paired_levels`` goes to the field.  Returns the loss and the
+    kept-sample count, both on the device, and the renderer's extras."""
     from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays
     from torch.profiler import record_function
 
     def rgb_sigma_fn(ts, te, ri):
         o, d = gather_ray_od(rays_o, rays_d, ri)
-        rgb, sigma = field(o + ((ts + te) / 2)[:, None] * d, d)
+        rgb, sigma = field(o + ((ts + te) / 2)[:, None] * d, d, paired_levels=paired_levels)
+        return rgb, sigma[..., 0]
+
+    def rgb_sigma_soa_fn(o, d, ts, te):
+        mid = (ts + te) / 2
+        rgb, sigma = field(tuple(o[k] + mid * d[k] for k in range(3)), d, paired_levels=paired_levels)
         return rgb, sigma[..., 0]
 
     if render_kw is None:
@@ -416,7 +442,7 @@ def train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, capacity,
     colors, _, _, n_samp, extras = occgrid_render_rays(
         rgb_sigma_fn, sigma_fn, est, state, rays_o, rays_d, far_plane=1e10,
         render_bkgd=torch.ones(3, device=rays_o.device), stratified=True, jitter=jitter,
-        sample_capacity=capacity, **render_kw,
+        sample_capacity=capacity, rgb_sigma_soa_fn=rgb_sigma_soa_fn if soa else None, **render_kw,
     )
     loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
     opt.zero_grad(set_to_none=True)
@@ -444,7 +470,9 @@ def density_fn(field, rays_o, rays_d, record=None):
 
 
 def occ_update(est, state, field, **draw_kw):
-    """bench.py's occupancy update (post-warmup draws, 2^20 at res 128)."""
+    """bench.py's occupancy update (post-warmup draws, 2^20 at res 128);
+    ``soa_positions=True`` among ``draw_kw`` hands the field ``(xs, ys,
+    zs)`` tuples (``BENCH_OCC_SOA``)."""
     from torch.profiler import record_function
 
     with record_function("occ_update"):
@@ -581,7 +609,7 @@ def traversal_card_vs_cpu(est, shell, rays_o, rays_d, jitter, dev) -> None:
                 render_step_size=STEP, stratified=True, jitter=jitter.to(device),
                 sample_capacity=capacity, max_macro_segments=TRAIN_MACRO,
             )
-            res.append({k: v.cpu() for k, v in cs._asdict().items()})
+            res.append({k: v.cpu() for k, v in cs._asdict().items() if v is not None})
         a, b = res  # card, CPU
         t_err = 0.0
         for k, want in b.items():
@@ -817,35 +845,45 @@ def k3_inputs(rng) -> tuple:
     return ids, vals
 
 
-def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_inputs,
-                     compute_dtype=torch.bfloat16):
-    """Phases 6, 7 and 9: bench.py's throughput phase on the port with the
-    field ``field_cfg`` at ``compute_dtype`` (None: float32), whose table
-    gradient launches ``grad_kernel`` (``grad_label`` in the prints); then,
-    if ``check_inputs``, K1 against
-    its plain version on one step's queries and K3 on one update's draws,
-    each timed.  Returns the field (for phase 8), the launches of K1, the
-    table-gradient kernel and K3 on the train path, and K1's largest
-    difference on those queries (0 when not checked)."""
+def bench_setup(dev, field_cfg, compute_dtype, weights=None):
+    """Phase 6's estimator, shell grid, rays and pixels (bench.py:86,118-122)
+    and a field of ``field_cfg`` from seed 0 (or ``weights``), with Adam."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
-    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
-    from nerfacc_tpu_torch.ops.table_grad import cell_max
 
     est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1, skip_factor=2)
     state = est.set_binaries(est.init(dev), torch.from_numpy(shell_binaries(GRID_RES)))
     field = NGPRadianceField(
-        aabb=AABB, compute_dtype=compute_dtype, device=dev,
-        generator=torch.Generator().manual_seed(0), **field_cfg,
+        aabb=AABB, compute_dtype=compute_dtype, device=dev, generator=torch.Generator().manual_seed(0), **field_cfg,
     )
-    what = f"{field_cfg.get('encoder_type', 'fused')}, {'bf16' if compute_dtype else 'float32'}"
-    opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
-    rng = np.random.default_rng(0)  # bench.py:86,118-122
+    if weights is not None:
+        field.load_state_dict(weights)
+    rng = np.random.default_rng(0)
     d = rng.normal(size=(TRAIN_RAYS, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    rays_o = torch.from_numpy(-3.0 * d).to(dev)
-    rays_d = torch.from_numpy(d).to(dev)
+    rays = (torch.from_numpy(-3.0 * d).to(dev), torch.from_numpy(d).to(dev))
     pixels = torch.from_numpy(rng.random((TRAIN_RAYS, 3), dtype=np.float32)).to(dev)
+    opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+    return est, state, field, opt, rays, pixels
+
+
+def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, check_inputs,
+                     compute_dtype=torch.bfloat16, details=None):
+    """Phases 6, 7, 9 and 15a: bench.py's throughput phase on the port with
+    the field ``field_cfg`` at ``compute_dtype`` (None: float32), whose
+    table gradient launches ``grad_kernel`` (``grad_label`` in the prints;
+    None for an encoder whose gradient is autograd's); then, if
+    ``check_inputs``, K1 against its plain version on one step's queries and
+    K3 on one update's draws, each timed.  Returns the field (for phase 8),
+    the launches of K1, the table-gradient kernel and K3 on the train path,
+    and K1's largest difference on those queries (0 when not checked).  A
+    dict ``details`` receives K1's and K3's numbers on the path's own inputs
+    (``k1``, ``k3``), the profile (``profile``) and the update's ms."""
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+    from nerfacc_tpu_torch.ops.table_grad import cell_max
+
+    est, state, field, opt, (rays_o, rays_d), pixels = bench_setup(dev, field_cfg, compute_dtype)
+    what = f"{field_cfg.get('encoder_type', 'fused')}, {'bf16' if compute_dtype else 'float32'}"
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def step():
@@ -857,7 +895,9 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    occupancy_query.launches = grad_kernel.launches = cell_max.launches = 0
+    occupancy_query.launches = cell_max.launches = 0
+    if grad_kernel is not None:
+        grad_kernel.launches = 0
     losses = []
     for _ in range(3):  # warm-up
         losses.append(step()[0])
@@ -876,7 +916,9 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
     outs = [update() for _ in range(TRAIN_UPDATES)]
     torch.cuda.synchronize()
     update_time = (time.perf_counter() - t0) / TRAIN_UPDATES
-    launches = {"K1": occupancy_query.launches, grad_label: grad_kernel.launches, "K3": cell_max.launches}
+    launches = {"K1": occupancy_query.launches, "K3": cell_max.launches}
+    if grad_kernel is not None:
+        launches[grad_label] = grad_kernel.launches
     total = int(torch.stack(n_samps).sum())
     occupied = int(outs[-1].binaries.sum())
     del outs
@@ -894,35 +936,48 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
     )
     if not all(math.isfinite(float(x)) for x in losses):
         fail("train: a loss is not finite")
-    if launches["K1"] <= 0 or launches[grad_label] < TRAIN_ITERS or launches["K3"] < TRAIN_UPDATES:
+    if (launches["K1"] <= 0 or launches.get(grad_label, TRAIN_ITERS) < TRAIN_ITERS
+            or launches["K3"] < TRAIN_UPDATES):
         fail(f"train: kernels launched too few times on the train path: {launches}")
     if not 0.5 * TRAIN_CAPACITY * TRAIN_ITERS < total <= TRAIN_CAPACITY * TRAIN_ITERS:
         fail(f"train: {total} samples in {TRAIN_ITERS} steps is not near the capacity")
     k1_err = 0.0
     if check_inputs:
-        k1_err = k1_on_train_inputs(step, state)["err"]
-        k3_on_update_inputs(update, dev)
+        k1 = k1_on_train_inputs(step, state)
+        k3 = k3_on_update_inputs(update, dev)
+        k1_err = k1["err"]
+        if details is not None:
+            details.update(k1=k1, k3=k3)
 
     def steps_and_update():
         for _ in range(3):
             step()
         update()
 
-    profile_window(
+    prof = profile_window(
         steps_and_update,
         ("traverse_and_compact", "field_forward", "gather_combine", "rendering", "backward",
          "table_grad", "optimizer", "occ_update"),
         f"train {what} (3 steps and 1 update)", profile_name,
     )
+    if details is not None:
+        details.update(profile=prof, update_ms=update_time * 1e3, sps=sps)
     return field, launches, k1_err, step_time / TRAIN_ITERS * 1e3
 
 
-def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0) -> None:
+# The gradient tolerance of the entries that a sample whose ReLU input took
+# another sign on the card feeds (phase 15c): up to 8.4e-4 of the largest
+# entry measured on an H100 (PERF.md).
+WIDE_TOL = 3e-3
+
+
+def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wide=None) -> None:
     """One train step on the card (``a``) against the CPU (``b``), each a
     dict of the kept-sample count ``n``, the ``loss``, the ``grads`` and the
     ``params`` after Adam: equal counts, the loss within ``tol`` relative,
     every hash table's gradient within ``tol`` and the others within ``mlp_tol`` of
-    their largest value, the parameters held where the gradients' signs
+    their largest value (``WIDE_TOL`` at the entries that a mask in ``wide``
+    marks), the parameters held where the gradients' signs
     agree and ``|g|`` is far above Adam's ``adam_eps`` and ``held_tols``
     times the gradient's tolerance (Adam's first step moves a parameter by
     ``lr * g / (|g| + eps)``, which follows ``g`` closely only there)."""
@@ -933,18 +988,22 @@ def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0) ->
     for k, g_cpu in b["grads"].items():
         g_gpu = a["grads"][k]
         k_tol = tol if k == "encoder.table" else mlp_tol
-        g_tol = k_tol * float(g_cpu.abs().max())
-        worst[k] = float((g_gpu - g_cpu).abs().max()) / max(float(g_cpu.abs().max()), 1e-30)
+        scale = max(float(g_cpu.abs().max()), 1e-30)
+        e_tol = torch.where(wide[k], WIDE_TOL, k_tol) if wide is not None and k in wide else k_tol
+        g_tol = torch.as_tensor(e_tol * scale)
+        err = (g_gpu - g_cpu).abs()
+        worst[k] = float(err.max()) / scale
         # Adam's first step moves a parameter by lr * g / (|g| + eps),
         # about lr * sign(g); a sign may differ only where the gradients
         # agree within g_tol, and the step is held where the signs agree
         # and |g| is far above eps = 1e-15.
         agree = torch.sign(g_gpu) == torch.sign(g_cpu)
-        held = agree & (g_cpu.abs() > max(1e-9, 100 * adam_eps, held_tols * g_tol))
+        held = agree & (g_cpu.abs() > torch.clamp(held_tols * g_tol, min=max(1e-9, 100 * adam_eps)))
         p_err = float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max())
-        if worst[k] > k_tol or not bool((g_cpu[~agree].abs() <= g_tol).all()) or p_err > 1e-6:
-            fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}), "
-                 f"params after Adam err {p_err:.3e}")
+        if not bool((err <= g_tol).all()) or not bool((g_cpu.abs() <= g_tol)[~agree].all()) or p_err > 1e-6:
+            fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}"
+                 + (f", {WIDE_TOL} at {int(wide[k].sum())} entries" if wide is not None and k in wide else "")
+                 + f"), params after Adam err {p_err:.3e}")
     table = f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), " if "encoder.table" in worst else ""
     print(
         f"card vs CPU train step ({label}, {what}): samples "
@@ -2478,7 +2537,367 @@ def serve(dev, est, state, crop: bool) -> float:
     return n_rays / dt
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+# Phase 15: the other encoders and the structure-of-arrays route.  (a) is
+# bench.py's step with BENCH_ENCODER=hash BENCH_LEVELS=16 BENCH_FEATS=2
+# BENCH_LOG2T=19 (tcnn's parametrisation, bench.py:896-900's reference arm;
+# the MLPs in bf16, the encoder in float32, as the JAX package gives hash no
+# compute_dtype); (b) phase 6's step with BENCH_SOA=1 and BENCH_OCC_SOA=1;
+# (c) BENCH_ENCODER=folded at bench.py's defaults (L4 x F16, 2^18), soa at
+# the tcnn shape and the fused encoder's scatter route, each one step on the
+# card against the CPU, and chunk-paired levels on the factor (K2) and
+# pallas (K5) routes; (d) traverse_grids' macro-skip branch on phase 3's grid.
+HASH_FIELD_CFG = dict(
+    encoder_type="hash", n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+    mlp_width=64, geo_feat_dim=15,
+)
+SOA_FIELD_CFG = dict(HASH_FIELD_CFG, encoder_type="soa")
+FOLDED_FIELD_CFG = dict(TRAIN_FIELD_CFG, encoder_type="folded")
+
+
+def timed_steps(step, iters=TRAIN_ITERS) -> tuple:
+    """3 warm-up calls of ``step()`` (which returns ``(loss, n_samples)``),
+    then ``iters`` timed on the host clock without a host read: the ms a
+    step and the kept samples over the window."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = [step()[1] for _ in range(iters)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3, int(torch.stack(n).sum())
+
+
+def soa_route(dev, phase6_step_ms) -> dict:
+    """Phase 15b: phase 6's fused bf16 step on the SoA route (ray components
+    added by the traversal, the field on ``(xs, ys, zs)``, the update's
+    probes as tuples) held against the array route on the card: the same
+    compaction, the loss and the table gradient within 1e-6 of its largest
+    entry, the updated occupancy bit-equal given the same draws, and K2 and
+    K3 as often a step and an update; then 30 timed steps of each route,
+    8 timed SoA updates, and K2 and K3 on the SoA route's own inputs."""
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    bf = torch.bfloat16
+    est, state, base, _, (rays_o, rays_d), pixels = bench_setup(dev, TRAIN_FIELD_CFG, bf)
+    weights = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    jitter = torch.rand((TRAIN_RAYS,), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    draws = est.make_draws(10**9, torch.Generator().manual_seed(3), device=dev)
+
+    res = {}
+    for soa in (False, True):
+        cs = est.compact_samples(state, rays_o, rays_d, render_step_size=STEP, stratified=True, jitter=jitter,
+                                 sample_capacity=TRAIN_CAPACITY, max_macro_segments=TRAIN_MACRO, carry_rays=soa)
+        field = bench_setup(dev, TRAIN_FIELD_CFG, bf, weights)[2]
+        opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+        tg.table_grad_u10.launches = tg.cell_max.launches = 0
+        loss, n_samp, _ = train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, TRAIN_CAPACITY, soa=soa)
+        k2 = tg.table_grad_u10.launches
+        grad = field.encoder.table.grad.detach().clone()
+        new = occ_update(est, state, field, draws=draws, soa_positions=soa)
+        torch.cuda.synchronize()
+        res[soa] = dict(cs=cs, loss=float(loss), n=int(n_samp), grad=grad, occs=new.occs, binaries=new.binaries,
+                        k2=k2, k3=tg.cell_max.launches)
+    a, b = res[True], res[False]
+    for name in ("ray_indices", "t_starts", "t_ends", "kept"):
+        if not torch.equal(getattr(a["cs"], name), getattr(b["cs"], name)):
+            fail(f"SoA route: the compaction's {name} differs from the array route's")
+    comps = a["cs"].ray_comps
+    ri = a["cs"].ray_indices.long()
+    for part, rays in ((0, rays_o), (1, rays_d)):
+        for k in range(3):
+            if not torch.equal(comps[part][k], rays[ri, k]):
+                fail("SoA route: a carried ray component is not its ray's")
+    scale = float(b["grad"].abs().max())
+    g_err = float((a["grad"] - b["grad"]).abs().max())
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    print(f"SoA route against the array route on the card: kept {a['n']} = {b['n']}, compaction equal, "
+          f"loss {a['loss']:.7f} vs {b['loss']:.7f} (rel err {loss_err:.2e}), table gradient max abs err "
+          f"{g_err:.3e} (largest {scale:.3e}), occupancy after an update equal: "
+          f"{torch.equal(a['occs'], b['occs'])}, binaries equal: {torch.equal(a['binaries'], b['binaries'])}; "
+          f"K2 {a['k2']} vs {b['k2']} a step, K3 {a['k3']} vs {b['k3']} an update", flush=True)
+    if a["n"] != b["n"] or loss_err > 1e-6 or g_err > 1e-6 * scale:
+        fail("SoA route: the step differs from the array route's")
+    if not (torch.equal(a["occs"], b["occs"]) and torch.equal(a["binaries"], b["binaries"])):
+        fail("SoA route: the update with tuple probes differs from the array update")
+    if (a["k2"], a["k3"]) != (b["k2"], b["k3"]) or a["k2"] != 1 or a["k3"] != 1:
+        fail(f"SoA route: K2/K3 launches {a['k2']}/{a['k3']}, array route {b['k2']}/{b['k3']}, expected 1/1")
+
+    # 30 timed steps of each route, then 8 timed SoA updates (the counts
+    # are read just after).
+    ms = {}
+    for soa in (False, True):
+        _, state_, field, opt, _, _ = bench_setup(dev, TRAIN_FIELD_CFG, bf, weights)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def step():
+            u = torch.rand((TRAIN_RAYS,), generator=gen, device=dev)
+            return train_step(field, opt, est, state_, rays_o, rays_d, pixels, u, TRAIN_CAPACITY, soa=soa)[:2]
+
+        tg.table_grad_u10.launches = tg.cell_max.launches = 0
+        ms[soa], total = timed_steps(step)
+        k2_launches = tg.table_grad_u10.launches
+        if soa:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_UPDATES):
+                occ_update(est, state_, field, generator=gen, soa_positions=True)
+            torch.cuda.synchronize()
+            update_ms = (time.perf_counter() - t0) / TRAIN_UPDATES * 1e3
+            k3_launches = tg.cell_max.launches
+            soa_step, soa_field, soa_state = step, field, state_
+    sps = total / ((ms[True] * TRAIN_ITERS + TRAIN_ITERS / 16.0 * update_ms) / 1e3)
+    print(f"train (fused, bf16, SoA route): {sps:.1f} samples/s, step {ms[True]:.2f} ms (array route "
+          f"{ms[False]:.2f} ms in this phase" + (f", phase 6 {phase6_step_ms:.2f} ms" if phase6_step_ms else "")
+          + f"), SoA update {update_ms:.2f} ms; launches K2 {k2_launches} in {TRAIN_ITERS + 3} steps, "
+          f"K3 {k3_launches} in {TRAIN_UPDATES} updates", flush=True)
+    if k2_launches != TRAIN_ITERS + 3 or k3_launches != TRAIN_UPDATES:
+        fail("SoA route: K2 must launch once a step and K3 once an update")
+    k2 = grad_kernel_on_step_inputs("K2", "table_grad_u10", soa_step, "one SoA-route step")
+    k3 = k3_on_update_inputs(lambda: occ_update(est, soa_state, soa_field, soa_positions=True), dev)
+    return dict(k2=k2, k3=k3, launches={"K2": k2_launches, "K3": k3_launches}, step_ms=ms[True])
+
+
+# Weight seeds of phase 15c's float32 routes: each route's step is held at
+# each, so that one run shows how often a ReLU input takes another sign on
+# the card and what that moves.
+F32_SEEDS = (0, 1, 2, 3)
+
+
+def flip_reach(field, enc_in, ray_indices, flipped, n_rays) -> dict:
+    """The gradient entries that the samples ``flipped`` (a ReLU input of
+    another sign on the card than on the CPU) feed: the table entries that
+    their encoding gathers, found as the nonzero entries of the table
+    gradient of their summed encoding (the corner weights are nonnegative),
+    and the ray origins of their rays."""
+    x = enc_in.detach()[flipped]
+    table = field.encoder.table
+    reach = {"encoder.table": torch.autograd.grad(field.encoder(x).float().sum(), table)[0] != 0}
+    rays = torch.zeros((n_rays, 3), dtype=torch.bool)
+    rays[ray_indices[flipped].long()] = True
+    reach["rays_o"] = rays
+    return reach
+
+
+def encoder_steps_card_vs_cpu(dev) -> None:
+    """Phase 15c: one step at 1024 rays and 2^15 samples on the card and on
+    the CPU, from the same weights, jitter and draws: the folded encoder
+    (bench.py's defaults), soa (the tcnn shape) and the fused scatter route
+    (with the gradient of the ray origins, the positions' only route), all
+    float32 and each from the weight seeds ``F32_SEEDS``, loss within rtol
+    1e-5 and every gradient within 3e-4 of its largest entry, but 3e-3 for
+    the table entries and ray origins fed by a sample whose ReLU input took
+    another sign on the card than on the CPU (:func:`flip_reach`); and
+    chunk-paired levels (``paired_safe_levels``) on the fused bf16 factor
+    (K2) and pallas (K5) routes, loss within rtol 1e-5 and gradients within
+    2e-2 (phase 8's bf16 gate).  Each route launches exactly its kernels."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    cpu, bf = torch.device("cpu"), torch.bfloat16
+    n_rays, capacity = 1024, 1 << 15
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_o, rays_d = torch.from_numpy(-3.0 * d), torch.from_numpy(d)
+    pixels = torch.from_numpy(rng.random((n_rays, 3), dtype=np.float32))
+    jitter = torch.from_numpy(rng.random(n_rays, dtype=np.float32))
+    est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1, skip_factor=2)
+    shell = torch.from_numpy(shell_binaries(GRID_RES))
+    paired = ngp_field(TRAIN_FIELD_CFG, None, cpu).paired_safe_levels(STEP)
+    wrappers = ("table_grad_u10", "table_grad_w3", "table_grad_w8", "table_grad_sorted", "table_grad_pos")
+    routes = (
+        # (label, field configuration, compute dtype, gradient tolerance,
+        #  paired levels, the kernels' launches, the origins' gradient,
+        #  weight seeds)
+        ("folded float32", FOLDED_FIELD_CFG, None, 3e-4, 0, {}, False, F32_SEEDS),
+        ("soa float32", SOA_FIELD_CFG, None, 3e-4, 0, {}, False, F32_SEEDS),
+        ("fused scatter float32", dict(TRAIN_FIELD_CFG, table_grad="scatter"), None, 3e-4, 0, {}, True, F32_SEEDS),
+        (f"fused factor bf16, {paired} paired", TRAIN_FIELD_CFG, bf, 2e-2, paired, {"table_grad_u10": 2}, False,
+         (0,)),
+        (f"fused pallas bf16, {paired} paired", dict(TRAIN_FIELD_CFG, table_grad="pallas"), bf, 2e-2, paired,
+         {"table_grad_sorted": 2}, False, (0,)),
+    )
+    results = []
+    for route_label, cfg, cdt, tol, pl, kernels, pos, seeds in routes:
+        for seed in seeds:
+            label = f"{route_label}, seed {seed}"
+            seeded = dict(cfg, generator=torch.Generator().manual_seed(seed))
+            weights = {k: v.detach().clone() for k, v in ngp_field(seeded, cdt, cpu).state_dict().items()}
+            res = []
+            for device in (dev, cpu):
+                field = ngp_field(cfg, cdt, device)
+                field.load_state_dict({k: v.to(device) for k, v in weights.items()})
+                opt = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+                state = est.set_binaries(est.init(device), shell)
+                ro = rays_o.to(device).clone().requires_grad_(pos)
+                for w in wrappers:
+                    getattr(tg, w).launches = 0
+                # The sign of every ReLU's input: the card's and the CPU's
+                # GEMMs round differently, and a pre-activation within an ulp
+                # of 0 may fall on the other side, which moves that sample's
+                # gradient.  And the encoder's input, to find what such a
+                # sample feeds.
+                signs, enc_in = [], []
+                hooks = [m.register_forward_hook(lambda mod, inp, out: signs.append((inp[0] > 0).cpu()))
+                         for m in field.modules() if isinstance(m, torch.nn.ReLU)]
+                hooks.append(field.encoder.register_forward_hook(lambda mod, inp, out: enc_in.append(inp[0])))
+                t0 = time.perf_counter()
+                loss, n_samp, extras = train_step(field, opt, est, state, ro, rays_d.to(device),
+                                                  pixels.to(device), jitter.to(device), capacity, paired_levels=pl)
+                for h in hooks:
+                    h.remove()
+                grads = {k: p.grad.detach().cpu() for k, p in field.named_parameters()}
+                if pos:
+                    grads["rays_o"] = ro.grad.detach().cpu()
+                used = None
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                    used = {w: getattr(tg, w).launches for w in wrappers}
+                res.append(dict(loss=float(loss), n=int(n_samp), grads=grads, used=used, signs=signs,
+                                params={k: p.detach().cpu() for k, p in field.named_parameters()},
+                                kept=extras["kept"].cpu(), ray_indices=extras["ray_indices"].cpu(),
+                                field=field, enc_in=enc_in, s=time.perf_counter() - t0))
+            a, b = res
+            if any(sa.shape[0] != capacity for sa in a["signs"]) or len(b["enc_in"]) != 1:
+                fail(f"card vs CPU ({label}): the ReLU inputs are not one row a sample")
+            flipped = torch.zeros(capacity, dtype=torch.bool)
+            for sa, sb in zip(a["signs"], b["signs"]):
+                flipped |= (sa != sb).any(dim=-1)
+            flips = sum(int((sa != sb).sum()) for sa, sb in zip(a["signs"], b["signs"]))
+            # A float32 route holds every entry at 3e-4 except those that a
+            # flipped sample feeds: that sample's terms move whole there, and
+            # a fine hashed row fed by it alone can move by its own size.
+            wide = None
+            if cdt is None and bool(flipped.any()):
+                wide = flip_reach(b["field"], b["enc_in"][0], b["ray_indices"], flipped, n_rays)
+            # Every gradient's error first (and outside the flipped samples'
+            # entries), so that one run shows where a route departs.
+            errs, inner = {}, {}
+            for k, g in b["grads"].items():
+                err = (a["grads"][k] - g).abs() / max(float(g.abs().max()), 1e-30)
+                errs[k] = float(err.max())
+                if wide is not None and k in wide:
+                    inner[k] = float(torch.where(wide[k], 0.0, err).max())
+            reached = int(wide["encoder.table"].sum()) if wide is not None else 0
+            print(f"card vs CPU ({label}): kept equal {torch.equal(a['kept'], b['kept'])}, {flips} ReLU inputs "
+                  f"of another sign in {int(flipped.sum())} samples, feeding {reached} table entries; loss rel "
+                  f"err {abs(a['loss'] - b['loss']) / abs(b['loss']):.2e}, gradient rel errs "
+                  + ", ".join(f"{k} {v:.2e}" + (f" ({inner[k]:.2e} elsewhere)" if k in inner else "")
+                              for k, v in errs.items()), flush=True)
+            results.append((label, tol, kernels, pos, a, b, wide))
+    for label, tol, kernels, pos, a, b, wide in results:
+        if a["used"] != {w: kernels.get(w, 0) for w in wrappers}:
+            fail(f"card vs CPU ({label}): table-gradient launches {a['used']}, expected {kernels}")
+        if pos:  # the origins have no Adam step to hold
+            g_a, g_b = a["grads"].pop("rays_o"), b["grads"].pop("rays_o")
+            pos_tol = tol if wide is None else torch.where(wide["rays_o"], WIDE_TOL, tol)
+            pos_err = float(((g_a - g_b).abs() / (pos_tol * float(g_b.abs().max()))).max())
+            if not pos_err <= 1.0 or not bool(g_b.abs().max() > 0):
+                fail(f"card vs CPU ({label}): the positions' gradient differs: {pos_err} of its tolerance")
+        hold_step(label, a, b, tol, tol, f"{n_rays} rays, capacity {capacity}", wide=wide)
+        loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        if loss_err > 1e-5:
+            fail(f"card vs CPU ({label}): loss rel err {loss_err} > 1e-5")
+
+
+def skip_traversal_on_card(dev) -> int:
+    """Phase 15d: traverse_grids with the macro-skip branch on phase 3's
+    grid (the res-128 shell, skip factor 4) for 4096 rays on the card:
+    the same ``num_valid``, validity and intervals (within 1e-5) as the
+    dense branch; K1's skip probes held exact against its plain version and
+    counted.  Returns the skip probes' launches."""
+    import nerfacc_tpu_torch.grid as grid_mod
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query, occupancy_query_plain
+
+    rng = np.random.default_rng(0)
+    est, state, base, _ = k1_render_inputs(dev, rng)
+    d = rng.normal(size=(CHUNK, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_o, rays_d = torch.from_numpy(-3.0 * d).to(dev), torch.from_numpy(d).to(dev)
+    lattice, use_skip, stride, max_macro, row_cap = est.plan_traversal(STEP, max_macro_segments=24)
+    if not use_skip:
+        fail("skip traversal: the plan takes no macro-skip at phase 3's grid")
+    kw = dict(step_size=STEP, traverse_steps_limit=row_cap, packed_grids=state.binaries_packed,
+              max_lattice_steps=lattice, base_aabb=base)
+    calls = []
+
+    def recording(packed, aabb, px, py, pz, rz, mip_pad=0):
+        calls.append((packed, aabb, (px, py, pz), rz, mip_pad))
+        return occupancy_query(packed, aabb, px, py, pz, rz=rz, mip_pad=mip_pad)
+
+    dense = grid_mod.traverse_grids(rays_o, rays_d, state.binaries, state.aabbs, **kw)
+    occupancy_query.launches = 0
+    grid_mod.occupancy_query = recording
+    try:
+        skip = grid_mod.traverse_grids(rays_o, rays_d, state.binaries, state.aabbs, skip_grid=state.skip_grid,
+                                       packed_skip=state.skip_packed, macro_stride=stride,
+                                       max_macro_segments=max_macro, **kw)
+        torch.cuda.synchronize()
+    finally:
+        grid_mod.occupancy_query = occupancy_query
+    launches = occupancy_query.launches
+    probes = [c for c in calls if c[4] == 1]
+    for packed, aabb, pts, rz, mip_pad in probes:
+        if packed is not state.skip_packed:
+            fail("skip traversal: a probe on a grid other than skip_packed")
+        if not torch.equal(occupancy_query(packed, aabb, *pts, rz=rz, mip_pad=1),
+                           occupancy_query_plain(packed, aabb, *pts, rz=rz, mip_pad=1)):
+            fail("skip traversal: K1 disagrees with its plain version on the skip probes")
+    t_err = max(float((torch.where(dense.is_valid, getattr(dense, k), 0.0)
+                       - torch.where(skip.is_valid, getattr(skip, k), 0.0)).abs().max())
+                for k in ("t_starts", "t_ends"))
+    same = torch.equal(dense.num_valid, skip.num_valid) and torch.equal(dense.is_valid, skip.is_valid)
+    print(f"traverse_grids with the skip grid on the card: {CHUNK} rays, lattice {lattice}, macro stride "
+          f"{stride}, budget {max_macro}; samples {int(skip.num_valid.sum())} = {int(dense.num_valid.sum())} "
+          f"dense, num_valid and validity equal: {same}, t max abs err {t_err:.3e}; K1 launches {launches} "
+          f"({len(probes)} skip-probe launches of {tuple(probes[0][2][0].shape) if probes else ()}, exact)",
+          flush=True)
+    if not same or t_err > 1e-5 or len(probes) != 1 or launches != 2:
+        fail("skip traversal: the macro-skip branch differs from the dense branch, or K1 was not launched "
+             "for its probes")
+    return len(probes)
+
+
+def train_encoders(dev, phase6_step_ms=None) -> dict:
+    """Phase 15 (see the module docstring): (a) the hash encoder at the
+    reference's shape, (b) the SoA route, (c) card against CPU for the other
+    encoders and routes and 30 timed folded steps, (d) the macro-skip
+    traversal.  Returns K1's numbers on (a)'s lattice queries and K2's and
+    K3's on (b)'s inputs, with their launches."""
+    t_phase = time.perf_counter()
+    details = {}
+    _, launches, _, hash_ms = train_full_width(
+        dev, HASH_FIELD_CFG, None, None, "profile_train_hash.txt", check_inputs=True, details=details,
+    )
+    prof = details["profile"]
+    share = {
+        label: sum(ms for name, (ms, _) in prof["kernels"].items() if any(k in name for k in keys))
+        # PyTorch runs this index_select as a gather kernel; the traversal's
+        # few small gathers count there too.
+        for label, keys in (("index_add_ (table gradient)", ("indexFunc",)),
+                            ("index_select and gather", ("indexSelect", "_scatter_gather_elementwise")))
+    }
+    print("hash encoder (phase 15a): " + ", ".join(
+        f"{k} {v:.1f} ms = {100 * v / prof['busy_ms']:.1f}% of device time" for k, v in share.items())
+        + f" over 3 steps and an update; step {hash_ms:.2f} ms, update {details['update_ms']:.2f} ms, "
+        f"{details['sps']:.1f} samples/s", flush=True)
+    soa = soa_route(dev, phase6_step_ms)
+    encoder_steps_card_vs_cpu(dev)
+    # 30 timed steps of bench.py's folded arm (bf16 MLPs, its default dtype).
+    est, state, field, opt, (rays_o, rays_d), pixels = bench_setup(dev, FOLDED_FIELD_CFG, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    folded_ms, total = timed_steps(lambda: train_step(
+        field, opt, est, state, rays_o, rays_d, pixels, torch.rand((TRAIN_RAYS,), generator=gen, device=dev),
+        TRAIN_CAPACITY)[:2])
+    print(f"train (folded L4 x F16, 2^18, bf16 MLPs): step {folded_ms:.2f} ms, "
+          f"{total / (folded_ms * TRAIN_ITERS / 1e3):.1f} kept samples/s over {TRAIN_ITERS} steps", flush=True)
+    del est, state, field, opt
+    skip_probes = skip_traversal_on_card(dev)
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=details["k1"], soa=soa, skip_probes=skip_probes)
+
+
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -2590,6 +3009,10 @@ def main(argv=None) -> None:
     if 14 in run:
         train_tnerf(dev)
 
+    # ---- 15. the other encoders, the SoA route, the macro-skip traversal ---
+    if 15 in run:
+        enc = train_encoders(dev, train_step_ms if 6 in run else None)
+
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
         # K1's launches here are the fused train path's (phase 6); the serve
@@ -2653,6 +3076,19 @@ def main(argv=None) -> None:
             kernel_row("cell_max_mlp", src + "cell_max.cu", tg_py + "1918", mlp["launches"]["K3"], mlp["k3"]["err"],
                        mlp["k3"]["ms"], mlp["k3"]["plain_ms"], mlp["k3"]["bytes"], mlp["k3"]["ops"],
                        mlp["k3"]["library_ms"]),
+            # K1 on the hash encoder's path (phase 15a, one step's lattice
+            # queries); K2 and K3 on the SoA route (phase 15b, one step's
+            # and one update's own inputs).
+            kernel_row("occupancy_query_hash", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       enc["launches"]["K1"], enc["k1"]["err"], enc["k1"]["lattice"]["ms"],
+                       enc["k1"]["lattice"]["plain_ms"], enc["k1"]["lattice"]["bytes"], enc["k1"]["lattice"]["ops"],
+                       None),
+            kernel_row("table_grad_u10_soa", src + "table_grad_u10.cu", tg_py + "749", enc["soa"]["launches"]["K2"],
+                       enc["soa"]["k2"]["err"], enc["soa"]["k2"]["ms"], enc["soa"]["k2"]["plain_ms"],
+                       enc["soa"]["k2"]["bytes"], enc["soa"]["k2"]["ops"], None),
+            kernel_row("cell_max_soa", src + "cell_max.cu", tg_py + "1918", enc["soa"]["launches"]["K3"],
+                       enc["soa"]["k3"]["err"], enc["soa"]["k3"]["ms"], enc["soa"]["k3"]["plain_ms"],
+                       enc["soa"]["k3"]["bytes"], enc["soa"]["k3"]["ops"], enc["soa"]["k3"]["library_ms"]),
         ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

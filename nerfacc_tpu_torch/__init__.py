@@ -15,7 +15,9 @@ with the NGP field's backward and the occupancy update
 :meth:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator._update`),
 with the fused encoder (every table-gradient route) or the grouped
 tcnn-shape encoder
-(:class:`~nerfacc_tpu_torch.models.hash_soa.HashGridEncoderGrouped`), and
+(:class:`~nerfacc_tpu_torch.models.hash_soa.HashGridEncoderGrouped`), or
+any of the other encoders (the tcnn-parity ``hash`` and ``soa``,
+``folded``), on arrays or on ``(xs, ys, zs)`` component tuples, and
 the visibility filter that the unbounded (Mip-NeRF 360) configuration turns
 on (``alpha_thre``, ``refilter_capacity``, ``sampling(sigma_fn=)``,
 ``mark_invisible_cells``); and the proposal-network path
@@ -45,7 +47,16 @@ from .estimators.prop_net import PropNetEstimator, get_proposal_requires_grad_fn
 from .grid import TraversalResults, ray_aabb_intersect, traverse_grids
 from .pack import pack_info
 from .pdf import importance_sampling, searchsorted
-from .scan import exclusive_prod, exclusive_sum, inclusive_prod, inclusive_sum
+from .scan import (
+    exclusive_prod,
+    exclusive_sum,
+    inclusive_prod,
+    inclusive_sum,
+    seg_exclusive_prod,
+    seg_exclusive_sum,
+    seg_inclusive_prod,
+    seg_inclusive_sum,
+)
 from .volrend import (
     accumulate_along_rays,
     render_transmittance_from_alpha,
@@ -56,6 +67,11 @@ from .volrend import (
     render_weight_from_density,
     rendering,
 )
+
+# Also importable from the root, outside the JAX package's list below: the
+# encoders (``nerfacc_tpu.models``) and the flag-form scans
+# (``nerfacc_tpu.scan``).
+from .models import HashGridEncoder, HashGridEncoderFolded, HashGridEncoderFused, HashGridEncoderSoA
 
 __all__ = [
     "__version__",

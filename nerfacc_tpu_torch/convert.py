@@ -18,9 +18,12 @@ from .estimators.occ_grid import OccGridEstimator, OccGridState
 def field_from_jax(params: Mapping) -> dict:
     """``state_dict`` for :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`
     or :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField` from the flax
-    parameters of the JAX package's class of the same name (fused or
-    grouped encoder; a density field has ``mlp_base`` only), with or without
-    the outer ``{"params": ...}`` level.
+    parameters of the JAX package's class of the same name, with or without
+    the outer ``{"params": ...}`` level.  Every encoder's table is one
+    parameter laid out as the JAX encoder's: ``hash`` ``(L * T, F)``,
+    ``soa`` ``(F, L * T)``, ``fused`` and ``folded`` ``(L * T, 8 F)``,
+    ``grouped`` ``(G * T, 128)``; a density field has ``mlp_base`` only, and
+    the folded encoder's first layer takes its ``L * 8 * F`` features.
 
     flax ``Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights are their
     transpose.  flax names the dense layers of ``nn.Sequential`` by their

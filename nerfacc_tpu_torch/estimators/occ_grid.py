@@ -261,6 +261,7 @@ class OccGridEstimator(AbstractEstimator):
         sample_capacity: Optional[int] = None,
         max_macro_segments: int = 24,
         use_macro_skip: bool = True,
+        carry_rays: bool = False,
     ) -> CompactSamples:
         """Traversal planned by :meth:`plan_traversal` and compacted by
         :func:`~nerfacc_tpu_torch.grid.traverse_and_compact`, for
@@ -270,7 +271,8 @@ class OccGridEstimator(AbstractEstimator):
         row_cap``, ``row_cap`` the per-ray budget (``max_samples``).  With
         ``stratified``, each ray's near plane moves by ``jitter *
         render_step_size``, where ``jitter`` is an ``(n_rays,)`` tensor in
-        ``[0, 1)`` or is drawn from ``generator``.
+        ``[0, 1)`` or is drawn from ``generator``.  ``carry_rays`` adds each
+        slot's ray components (``CompactSamples.ray_comps``).
         """
         n_rays = rays_o.shape[0]
         near_planes = torch.full((n_rays,), near_plane, dtype=rays_o.dtype, device=rays_o.device)
@@ -310,6 +312,7 @@ class OccGridEstimator(AbstractEstimator):
             macro_stride=macro_stride,
             max_macro_segments=max_macro,
             packed_grids=state.binaries_packed,
+            carry_rays=carry_rays,
         )
 
     # ------------------------------------------------------------------
@@ -344,6 +347,9 @@ class OccGridEstimator(AbstractEstimator):
         """The random draws of one :meth:`_update`, one dict per level.
 
         ``jitter`` ``(n, 3)`` in ``[0, 1)``: the probe's place inside its cell.
+        :meth:`_update` also takes it as a tuple of three ``(n,)`` tensors,
+        one an axis, the layout in which the JAX package draws it for
+        ``soa_positions`` (``fold_in(k_jit, c)`` per component).
         After warmup, ``uniform`` ``(cells/4,)`` int64: the uniform half of the
         probed cells; ``offset`` (a scalar in ``[0, 1)``, ``sys``/``sysrow``)
         or ``unit`` (``(cells/4,)`` in ``[0, 1)``, ``uniform``; a caller may
@@ -381,6 +387,7 @@ class OccGridEstimator(AbstractEstimator):
         draws: Optional[Sequence[Dict[str, Tensor]]] = None,
         generator: Optional[torch.Generator] = None,
         draw_mode: str = "sysrow",
+        soa_positions: bool = False,
     ) -> OccGridState:
         """One EMA update (``occ_grid.py:387-657``).
 
@@ -393,6 +400,12 @@ class OccGridEstimator(AbstractEstimator):
         rows of ``sysrow`` do not tile the draw and ``sys`` is taken instead
         (the JAX package fails there).  ``draws`` (see :meth:`make_draws`)
         default to draws from ``generator``.
+
+        ``soa_positions`` hands ``occ_eval_fn`` the probe positions as an
+        ``(xs, ys, zs)`` tuple of ``(n,)`` tensors instead of one ``(n, 3)``
+        tensor (``occ_grid.py:396-400,569-590``), each component computed
+        as the array form computes it, so both probe the same points given
+        the same jitter.
 
         The EMA max over the probes goes through kernel K3
         (:func:`~nerfacc_tpu_torch.ops.table_grad.cell_max`) at ``>= 2^19``
@@ -417,12 +430,21 @@ class OccGridEstimator(AbstractEstimator):
                 indices = torch.cat(
                     [d["uniform"].to(device), self._occupied_draw(state, lvl, d, draw_mode)]
                 )
-            coords = torch.stack(
-                [indices // (ry * rz), (indices // rz) % ry, indices % rz], dim=-1
-            ).to(torch.float32)
+            comps = [indices // (ry * rz), (indices // rz) % ry, indices % rz]
             aabb = state.aabbs[lvl]
-            x = (coords + d["jitter"].to(device)) / resolution
-            x = aabb[:3] + x * (aabb[3:] - aabb[:3])
+            jit = d["jitter"]
+            if soa_positions:
+                jit = jit if isinstance(jit, (tuple, list)) else jit.unbind(-1)
+                x = tuple(
+                    aabb[c] + (comps[c].to(torch.float32) + jit[c].to(device)) / resolution[c]
+                    * (aabb[3 + c] - aabb[c])
+                    for c in range(3)
+                )
+            else:
+                jit = torch.stack(list(jit), dim=-1) if isinstance(jit, (tuple, list)) else jit
+                coords = torch.stack(comps, dim=-1).to(torch.float32)
+                x = (coords + jit.to(device)) / resolution
+                x = aabb[:3] + x * (aabb[3:] - aabb[:3])
             occ = occ_eval_fn(x).reshape(-1).to(torch.float32)
 
             cell_ids = lvl * cells + indices

@@ -45,9 +45,6 @@ Tensor = torch.Tensor
 # The JAX example's choices that the port does not have yet, with the
 # ROADMAP item (Queue 1) that ports them.
 NOT_PORTED = {
-    "hash": "ROADMAP Queue 1 item 6",
-    "soa": "ROADMAP Queue 1 item 6",
-    "folded": "ROADMAP Queue 1 item 6",
     "tensorf": "ROADMAP Queue 1 item 8",
     "kplanes": "ROADMAP Queue 1 item 8",
     "tineuvox": "ROADMAP Queue 1 item 8",
@@ -336,11 +333,12 @@ def resume(run: Run, model_path: str) -> None:
 def make_field(cfg: dict, estimator: OccGridEstimator, encoder: str = "fused", field: str = "ngp",
                levels: Optional[int] = None, feats: Optional[int] = None, log2t: Optional[int] = None,
                dtype: str = "f32", *, device, generator: Optional[torch.Generator] = None) -> NGPRadianceField:
-    """The example's radiance field (``train_ngp_nerf_occ.py:173-186``):
-    fused L8 x F16 with 2^18 entries by default, or the grouped tcnn shape
-    L16 x F2 with 2^19."""
+    """The example's radiance field (``train_ngp_nerf_occ.py:162-175``): the
+    fused and folded encoders at L8 x F16 with 2^18 entries by default, the
+    others (``hash``, ``soa``, the grouped tcnn shape) at L16 x F2 with
+    2^19."""
     refuse_unported(encoder=encoder, field=field)
-    fused = encoder == "fused"
+    fused = encoder in ("fused", "folded")
     return NGPRadianceField(
         aabb=tuple(float(v) for v in estimator._aabbs_np[-1]),
         unbounded=cfg["unbounded"],
@@ -368,10 +366,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_rays", type=int, default=None)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--encoder", type=str, default="fused", choices=["hash", "soa", "fused", "folded", "grouped"],
-                   help="'grouped' = the reference's 16L x 2F tcnn shape; hash, soa and folded are not ported yet")
+                   help="'hash' and 'soa' = tcnn's parametrisation; 'grouped' = its 16L x 2F shape in 128-wide rows")
     p.add_argument("--field", type=str, default="ngp", choices=["ngp", "tensorf", "kplanes"],
                    help="radiance field family; tensorf and kplanes are not ported yet")
-    p.add_argument("--levels", type=int, default=None, help="hash-grid levels (default 8 fused, 16 grouped)")
+    p.add_argument("--levels", type=int, default=None, help="hash-grid levels (default 8 fused/folded, else 16)")
     p.add_argument("--feats", type=int, default=None)
     p.add_argument("--log2t", type=int, default=None)
     p.add_argument("--dtype", type=str, default="f32", choices=["f32", "bf16"],

@@ -25,7 +25,6 @@ from ..models.ngp import NGPDensityField, NGPRadianceField
 from ..rendering import propnet_render_rays
 from ..utils.lpips import lpips
 from .common import MIPNERF360_UNBOUNDED_SCENES, NERF_SYNTHETIC_SCENES, Timer, psnr, render_image_chunked
-from .train_ngp_nerf_occ import refuse_unported
 
 Tensor = torch.Tensor
 
@@ -91,7 +90,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--encoder", type=str, default="fused", choices=["hash", "soa", "fused", "folded"],
-                   help="hash, soa and folded are not ported yet")
+                   help="the radiance field's and the proposal nets' encoder")
     p.add_argument("--dtype", type=str, default="f32", choices=["f32", "bf16"],
                    help="field compute precision (parameters and Adam stay float32)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -101,7 +100,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def setup(args: argparse.Namespace):
     """``(run, train_ds, test_ds, max_steps, eval_chunk)`` for the parsed
     arguments (``train_ngp_nerf_prop.py:60-131``)."""
-    refuse_unported(encoder=args.encoder)
     device = resolve_device(args.device)
     unbounded = args.scene in MIPNERF360_UNBOUNDED_SCENES
     procedural = args.smoke or args.data_root is None or args.scene == "procedural"
@@ -141,11 +139,16 @@ def setup(args: argparse.Namespace):
 
     gen = torch.Generator().manual_seed(42)
     cdt = torch.bfloat16 if args.dtype == "bf16" else None
-    field = NGPRadianceField(aabb=tuple(aabb), unbounded=unbounded, n_levels=8, n_features_per_level=16,
-                             log2_hashmap_size=18, compute_dtype=cdt, device=device, generator=gen)
+    # The fused and folded encoders' 128-wide rows (8 corners x 16 features);
+    # hash and soa at tcnn's shape (:107-125).
+    fused = args.encoder in ("fused", "folded")
+    field = NGPRadianceField(aabb=tuple(aabb), unbounded=unbounded, encoder_type=args.encoder,
+                             n_levels=8 if fused else 16, n_features_per_level=16 if fused else 2,
+                             log2_hashmap_size=18 if fused else 19, compute_dtype=cdt, device=device,
+                             generator=gen)
     prop_nets = [
         NGPDensityField(aabb=tuple(aabb), unbounded=unbounded, n_levels=5, max_resolution=mr,
-                        compute_dtype=cdt, device=device, generator=gen)
+                        encoder_type=args.encoder, compute_dtype=cdt, device=device, generator=gen)
         for mr in max_res_prop
     ]
     run = PropRun(

@@ -6,13 +6,13 @@ materialised (closed form of ``t_{k+1} = t_k + clamp(t_k * cone, step,
 inf)``), each ladder midpoint is tested against the grid, and the valid
 samples are compacted.  The occupancy test is kernel K1
 (:func:`~nerfacc_tpu_torch.ops.occ_query.occupancy_query`) on the
-bit-packed grid, and so are the macro-skip probes of
-:func:`traverse_and_compact` (on the packed skip grid, ``mip_pad=1``).
+bit-packed grid, and so are the macro-skip probes of both traversals (on
+the packed skip grid, ``mip_pad=1``).
 
 :func:`traverse_grids` compacts each ray's row (the inference renderer);
 :func:`traverse_and_compact` compacts straight into one flat, globally
-sorted buffer of fixed capacity (the training path).  The macro-skip branch
-of ``traverse_grids`` is not ported: no ported caller uses it.
+sorted buffer of fixed capacity (the training path).  Both take the
+macro-skip branch when given a skip grid (:func:`_macro_lattice`).
 """
 
 from __future__ import annotations
@@ -154,6 +154,59 @@ def build_skip_grid(binaries: Tensor, factor: int = 4, dilation: int = 1) -> Ten
     return pooled > 0
 
 
+def _macro_lattice(
+    rays_o: Tensor, rays_d: Tensor, near: Tensor, lower: Tensor, far: Tensor, any_hit: Tensor,
+    skip_grid: Tensor, packed_skip: Optional[Tensor], base_aabb: Tensor, step_size: float,
+    cone_angle: float, max_lattice_steps: int, macro_stride: int, max_macro_segments: int,
+):
+    """The macro-skip stage (``grid.py:785-865``): the lattice is cut into
+    segments of ``macro_stride`` steps, each segment probed on the skip grid
+    (kernel K1 on ``packed_skip``, ``mip_pad=1``; one probe at its middle,
+    four with ``cone_angle > 0``, where segment spans and mip cells both grow
+    ~ t), and the first ``max_macro_segments`` occupied segments of each ray
+    kept.  Returns the lattice steps ``(n_rays, K * macro_stride)`` int32,
+    their liveness, the rays whose occupied segments passed the budget, and
+    where those rays' examined span ends (inf for the others)."""
+    if packed_skip is None:
+        raise ValueError("macro-skip traversal: skip_grid needs its packed copy packed_skip")
+    n_rays, device = rays_o.shape[0], rays_o.device
+    m_segs = -(-max_lattice_steps // macro_stride)
+    k_keep = max_macro_segments
+    seg_k = torch.arange(m_segs, dtype=torch.int32, device=device) * macro_stride
+    seg_lo = _ladder_at(near[:, None], seg_k, step_size, cone_angle)
+    seg_hi = _ladder_at(near[:, None], seg_k + macro_stride, step_size, cone_angle)
+    offsets = (0.5,) if cone_angle <= 0.0 else (0.125, 0.375, 0.625, 0.875)
+    tm = torch.stack([seg_lo + (seg_hi - seg_lo) * off for off in offsets], dim=-1)
+    probes = [
+        (rays_o[:, i, None, None] + tm * rays_d[:, i, None, None]).contiguous()
+        for i in range(3)
+    ]
+    mocc = occupancy_query(
+        packed_skip, base_aabb, *probes, rz=int(skip_grid.shape[-1]), mip_pad=1
+    ).any(dim=-1)
+    macro_valid = (
+        mocc & (seg_hi > lower[:, None]) & (seg_lo < far[:, None]) & any_hit[:, None]
+    )
+    mcum = torch.cumsum(macro_valid.to(torch.int32), dim=-1, dtype=torch.int32)
+    # First-K selection: the k-th (0-based) occupied segment sits at the
+    # number of columns whose running count is below k + 1; rays with fewer
+    # segments count to m_segs, the dead-segment sentinel.
+    kr = torch.arange(1, k_keep + 1, dtype=torch.int32, device=device)
+    seg_idx = (mcum[:, :, None] < kr).sum(dim=1, dtype=torch.int32)  # (n_rays, K)
+    seg_live = seg_idx < m_segs
+    seg_idx = seg_idx.clamp(max=m_segs - 1)
+    macro_truncated = mcum[:, -1] > k_keep
+    last_seg = torch.where(seg_live, seg_idx, 0).amax(dim=-1)
+    macro_end = _ladder_at(near, (last_seg + 1) * macro_stride, step_size, cone_angle)
+    examined_end = torch.where(macro_truncated, macro_end, math.inf)
+
+    steps = torch.arange(macro_stride, dtype=torch.int32, device=device)
+    lat = (seg_idx[:, :, None] * macro_stride + steps).reshape(n_rays, k_keep * macro_stride)
+    lat = lat.clamp(max=max_lattice_steps)
+    live = seg_live.repeat_interleave(macro_stride, dim=-1)
+    return lat, live, macro_truncated, examined_end
+
+
 class TraversalResults(NamedTuple):
     """Dense traversal output, ``(n_rays, capacity)`` rows of samples."""
 
@@ -180,8 +233,13 @@ def traverse_grids(
     packed_grids: Tensor,
     max_lattice_steps: int = 1024,
     base_aabb: Optional[Tensor] = None,
+    skip_grid: Optional[Tensor] = None,
+    skip_factor: Optional[int] = None,
+    macro_stride: int = 16,
+    max_macro_segments: int = 16,
+    packed_skip: Optional[Tensor] = None,
 ) -> TraversalResults:
-    """Vectorised multi-level grid traversal (dense ladder).
+    """Vectorised multi-level grid traversal.
 
     Outputs have the capacity ``traverse_steps_limit`` (default
     ``max_lattice_steps``) per ray with ``is_valid`` masking; invalid slots
@@ -190,6 +248,14 @@ def traverse_grids(
     :func:`~nerfacc_tpu_torch.ops.occ_query.bitpack_grid` (an
     ``OccGridState`` keeps it as ``binaries_packed``); the occupancy test is
     kernel K1 on it.
+
+    With ``skip_grid`` (and its packed copy ``packed_skip``; an
+    ``OccGridState`` keeps them as ``skip_grid`` and ``skip_packed``) only
+    the first ``max_macro_segments`` occupied macro segments of
+    ``macro_stride`` steps are marched (:func:`_macro_lattice`,
+    ``grid.py:785-865``); a ray whose occupied segments pass that budget
+    ends its examined span at the last kept segment.  The skip grid's shape
+    fixes its factor; a ``skip_factor`` given beside it must agree.
     """
     n_rays = rays_o.shape[0]
     dtype, device = rays_o.dtype, rays_o.device
@@ -212,22 +278,43 @@ def traverse_grids(
     if rays_mask is not None:
         any_hit = any_hit & rays_mask
     lower = torch.maximum(near, t_enter)
+    base_aabb = base_aabb.contiguous()
+    if skip_grid is not None and skip_factor is not None:
+        if skip_grid.shape[-1] * skip_factor != binaries.shape[-1]:
+            raise ValueError(
+                f"traverse_grids: skip_factor {skip_factor} disagrees with the skip grid "
+                f"{tuple(skip_grid.shape)} of the grid {tuple(binaries.shape)}"
+            )
 
-    # Stage 1: the full ladder, per-axis sample positions.
-    edges = _march_ladder(near, max_lattice_steps + 1, step_size, cone_angle)
-    t0 = edges[:, :-1]
-    t1 = edges[:, 1:]
+    # Stage 1: the ladder (the kept macro segments', or all of it), per-axis
+    # sample positions.
+    examined_end = live = None
+    if skip_grid is not None:
+        lat, live, _, examined_end = _macro_lattice(
+            rays_o, rays_d, near, lower, far, any_hit, skip_grid, packed_skip, base_aabb,
+            step_size, cone_angle, max_lattice_steps, macro_stride, max_macro_segments,
+        )
+        t0 = _ladder_at(near[:, None], lat, step_size, cone_angle)
+        t1 = _ladder_at(near[:, None], lat + 1, step_size, cone_angle)
+        lattice_end = _ladder_at(
+            near, torch.full((n_rays,), max_lattice_steps, dtype=torch.int32, device=device),
+            step_size, cone_angle,
+        )
+    else:
+        edges = _march_ladder(near, max_lattice_steps + 1, step_size, cone_angle)
+        t0 = edges[:, :-1]
+        t1 = edges[:, 1:]
+        lattice_end = edges[:, -1]
     t_mid = (t0 + t1) * 0.5
-    lattice_end = edges[:, -1]
-    px = rays_o[:, 0:1] + t_mid * rays_d[:, 0:1]
-    py = rays_o[:, 1:2] + t_mid * rays_d[:, 1:2]
-    pz = rays_o[:, 2:3] + t_mid * rays_d[:, 2:3]
-    occ = occupancy_query(
-        packed_grids, base_aabb.contiguous(), px, py, pz, rz=int(binaries.shape[-1])
-    )
+    px = (rays_o[:, 0:1] + t_mid * rays_d[:, 0:1]).contiguous()
+    py = (rays_o[:, 1:2] + t_mid * rays_d[:, 1:2]).contiguous()
+    pz = (rays_o[:, 2:3] + t_mid * rays_d[:, 2:3]).contiguous()
+    occ = occupancy_query(packed_grids, base_aabb, px, py, pz, rz=int(binaries.shape[-1]))
 
     inside = (t_mid >= lower[:, None]) & (t_mid < far[:, None])
     valid = occ & inside & any_hit[:, None]
+    if live is not None:
+        valid = valid & live
 
     # Stage 2: per-row compaction; invalid samples go to a spare column.
     vcum = torch.cumsum(valid.to(torch.int32), dim=-1, dtype=torch.int32)
@@ -246,6 +333,8 @@ def traverse_grids(
     hit_cap = count >= capacity
     last_end = t_ends.amax(dim=-1)
     examined = torch.minimum(lattice_end, far)
+    if examined_end is not None:
+        examined = torch.minimum(examined, examined_end)
     term = torch.where(hit_cap, last_end, torch.maximum(examined, near))
 
     t_starts = torch.where(is_valid, t_starts, term[:, None])
@@ -283,6 +372,9 @@ class CompactSamples(NamedTuple):
     # ``max_macro_segments``: their tail samples were dropped.  Always False
     # without macro-skip.
     macro_truncated: Tensor  # (n_rays,) bool
+    # With ``carry_rays``: each slot's ray origin and direction components,
+    # ``((ox, oy, oz), (dx, dy, dz))``, 1-D ``(capacity,)``; else None.
+    ray_comps: Optional[Tuple] = None
 
 
 def traverse_and_compact(
@@ -306,15 +398,20 @@ def traverse_and_compact(
     macro_stride: int = 16,
     max_macro_segments: int = 16,
     compact_chunk: int = 4,
+    carry_rays: bool = False,
 ) -> CompactSamples:
     """Traversal fused with global compaction into ``capacity`` slots.
 
-    Port of ``nerfacc_tpu/grid.py:381-722`` (``carry_rays`` is not ported).
-    With ``skip_grid`` (and its packed copy ``packed_skip``) the lattice is
-    cut into macro segments of ``macro_stride`` steps; each segment is
-    probed on the skip grid (kernel K1, ``mip_pad=1``; one probe at its
-    middle, four with ``cone_angle > 0``), and only the first
-    ``max_macro_segments`` occupied segments per ray are traversed.
+    Port of ``nerfacc_tpu/grid.py:381-722``.  With ``skip_grid`` (and its
+    packed copy ``packed_skip``) only the first ``max_macro_segments``
+    occupied macro segments of ``macro_stride`` steps per ray are traversed
+    (:func:`_macro_lattice`).
+
+    ``carry_rays`` adds ``ray_comps``: each slot's ray origin and direction
+    components, ``rays_o[ray_indices, k]`` and ``rays_d[ray_indices, k]``,
+    padding slots included (they decode to ray ``n_rays - 1``).  The JAX
+    package carries them through its compaction sort; a gather after the
+    compaction gives the same floats.
 
     Compaction works on chunks of ``C = compact_chunk`` lattice steps: each
     chunk holding an in-budget sample gets one packed int64 ``[row |
@@ -351,44 +448,10 @@ def traverse_and_compact(
 
     examined_end = None
     if skip_grid is not None:
-        if packed_skip is None:
-            raise ValueError("traverse_and_compact: skip_grid needs its packed copy packed_skip")
-        m_segs = -(-max_lattice_steps // macro_stride)
-        k_keep = max_macro_segments
-        seg_k = torch.arange(m_segs, dtype=torch.int32, device=device) * macro_stride
-        seg_lo = ladder(seg_k)
-        seg_hi = ladder(seg_k + macro_stride)
-        # One probe at the middle of a uniform segment; four on the
-        # geometric ladder, where segment spans and mip cells both grow ~ t.
-        offsets = (0.5,) if cone_angle <= 0.0 else (0.125, 0.375, 0.625, 0.875)
-        tm = torch.stack([seg_lo + (seg_hi - seg_lo) * off for off in offsets], dim=-1)
-        probes = [
-            (rays_o[:, i, None, None] + tm * rays_d[:, i, None, None]).contiguous()
-            for i in range(3)
-        ]
-        mocc = occupancy_query(
-            packed_skip, base_aabb, *probes, rz=int(skip_grid.shape[-1]), mip_pad=1
-        ).any(dim=-1)
-        macro_valid = (
-            mocc & (seg_hi > lower[:, None]) & (seg_lo < far[:, None]) & any_hit[:, None]
+        lat, live, macro_truncated, examined_end = _macro_lattice(
+            rays_o, rays_d, near, lower, far, any_hit, skip_grid, packed_skip, base_aabb,
+            step_size, cone_angle, max_lattice_steps, macro_stride, max_macro_segments,
         )
-        mcum = torch.cumsum(macro_valid.to(torch.int32), dim=-1, dtype=torch.int32)
-        # First-K selection: the k-th (0-based) occupied segment sits at the
-        # number of columns whose running count is below k + 1; rays with
-        # fewer segments count to m_segs, the dead-segment sentinel.
-        kr = torch.arange(1, k_keep + 1, dtype=torch.int32, device=device)
-        seg_idx = (mcum[:, :, None] < kr).sum(dim=1, dtype=torch.int32)  # (n_rays, K)
-        seg_live = seg_idx < m_segs
-        seg_idx = seg_idx.clamp(max=m_segs - 1)
-        macro_truncated = mcum[:, -1] > k_keep
-        last_seg = torch.where(seg_live, seg_idx, 0).amax(dim=-1)
-        macro_end = ladder((last_seg + 1) * macro_stride, near)
-        examined_end = torch.where(macro_truncated, macro_end, math.inf)
-
-        steps = torch.arange(macro_stride, dtype=torch.int32, device=device)
-        lat = (seg_idx[:, :, None] * macro_stride + steps).reshape(n_rays, k_keep * macro_stride)
-        lat = lat.clamp(max=max_lattice_steps)
-        live = seg_live.repeat_interleave(macro_stride, dim=-1)
     else:
         lat = torch.arange(max_lattice_steps, dtype=torch.int32, device=device)
         lat = lat.expand(n_rays, max_lattice_steps)
@@ -485,4 +548,30 @@ def traverse_and_compact(
         seg_starts=seg_lo_c * C,
         seg_counts=(seg_hi_c - seg_lo_c) * C,
         macro_truncated=macro_truncated,
+        ray_comps=chunked_ray_components(rays_o, rays_d, r, C) if carry_rays else None,
+    )
+
+
+
+def chunked_ray_components(
+    rays_o: Tensor, rays_d: Tensor, ray_indices: Tensor, chunk: int = 4
+) -> Tuple[Tuple[Tensor, Tensor, Tensor], Tuple[Tensor, Tensor, Tensor]]:
+    """Each sample's ray origin and direction components,
+    ``((ox, oy, oz), (dx, dy, dz))``, 1-D ``(n,)`` tensors
+    (``rendering.py:56-98``), for a layout in which every aligned run of
+    ``chunk`` samples shares one ray, as :func:`traverse_and_compact`'s
+    does: one gather a chunk, broadcast along it.  ``chunk=1`` gathers each
+    sample's own ray, and so does ``n % chunk != 0``."""
+    n = ray_indices.shape[0]
+    ri = ray_indices.long()
+    if n % chunk:
+        chunk = 1
+    r_c = ri.view(-1, chunk)[:, 0]
+
+    def comp(col: Tensor) -> Tensor:
+        return col[r_c][:, None].expand(n // chunk, chunk).reshape(n)
+
+    return (
+        tuple(comp(rays_o[:, k]) for k in range(3)),
+        tuple(comp(rays_d[:, k]) for k in range(3)),
     )

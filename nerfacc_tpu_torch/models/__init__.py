@@ -1,10 +1,21 @@
-from .hash_soa import HashGridEncoderFused, HashGridEncoderGrouped, grid_resolutions
+from .encoding import HashGridEncoder, spherical_harmonics_deg4
+from .hash_soa import (
+    HashGridEncoderFolded,
+    HashGridEncoderFused,
+    HashGridEncoderGrouped,
+    HashGridEncoderSoA,
+    grid_resolutions,
+    paired_safe_level_count,
+)
 from .mlp import MLP, NDRTNeRFRadianceField, NerfMLP, SinusoidalEncoder, TNeRFRadianceField, VanillaNeRFRadianceField
-from .ngp import NGPDensityField, NGPRadianceField, contract_tanh, contract_tanh_inv
+from .ngp import NGPDensityField, NGPRadianceField, contract_tanh, contract_tanh_inv, contract_to_unisphere, trunc_exp
 
 __all__ = [
+    "HashGridEncoder",
+    "HashGridEncoderFolded",
     "HashGridEncoderFused",
     "HashGridEncoderGrouped",
+    "HashGridEncoderSoA",
     "MLP",
     "NDRTNeRFRadianceField",
     "NGPDensityField",
@@ -15,5 +26,9 @@ __all__ = [
     "VanillaNeRFRadianceField",
     "contract_tanh",
     "contract_tanh_inv",
+    "contract_to_unisphere",
     "grid_resolutions",
+    "paired_safe_level_count",
+    "spherical_harmonics_deg4",
+    "trunc_exp",
 ]

@@ -1,10 +1,43 @@
-"""View-direction encoding (port of ``nerfacc_tpu/models/encoding.py:128``)."""
+"""The tcnn-parity hash-grid encoding and the view-direction encoding.
+
+Port of ``nerfacc_tpu/models/encoding.py``: :class:`HashGridEncoder`, the
+multiresolution hash encoding of Instant-NGP with tiny-cuda-nn's exact
+parametrisation (one ``(L * T, F)`` table, one row a grid vertex), and the
+degree-4 spherical harmonics.
+"""
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
+from .hash_soa import TcnnHashGrid
+
 Tensor = torch.Tensor
+
+
+class HashGridEncoder(TcnnHashGrid):
+    """Multiresolution hash encoding (``encoding.py:29-125``), tcnn's
+    ``(L * T, F)`` table: one row a grid vertex.  The levels, the vertex
+    rule, the initialisation and the table gradient are
+    :class:`~nerfacc_tpu_torch.models.hash_soa.TcnnHashGrid`'s."""
+
+    def __init__(
+        self,
+        n_levels: int = 16,
+        n_features_per_level: int = 2,
+        log2_hashmap_size: int = 19,
+        base_resolution: int = 16,
+        max_resolution: int = 4096,
+        *,
+        device: Union[str, torch.device] = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__(
+            n_levels, n_features_per_level, log2_hashmap_size, base_resolution, max_resolution,
+            False, device, generator,
+        )
 
 
 def spherical_harmonics_deg4(d: Tensor) -> Tensor:

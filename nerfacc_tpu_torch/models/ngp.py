@@ -1,8 +1,9 @@
 """Instant-NGP fields: a hash grid plus small MLPs.
 
-Port of ``nerfacc_tpu/models/ngp.py:39-304``: the radiance field with the
-fused or grouped encoder (``encoder_type``), and the proposal nets' density
-field with the fused encoder.
+Port of ``nerfacc_tpu/models/ngp.py:39-304``: the radiance field and the
+proposal nets' density field, each with any of the five hash encoders
+(``encoder_type``: the tcnn-parity ``hash`` and ``soa``, the corner-per-row
+``fused``, ``folded`` and ``grouped``).
 Parameters are initialised as flax initialises them (``lecun_normal``
 kernels, i.e. a normal truncated at two standard deviations; zero biases;
 the table uniform in ``[0, 2e-4)``) from a ``torch.Generator`` on the CPU, so
@@ -27,10 +28,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .encoding import spherical_harmonics_deg4
-from .hash_soa import HashGridEncoderFused, HashGridEncoderGrouped
+from .encoding import HashGridEncoder, spherical_harmonics_deg4
+from .hash_soa import (
+    HashGridEncoderFolded,
+    HashGridEncoderFused,
+    HashGridEncoderGrouped,
+    HashGridEncoderSoA,
+    paired_safe_level_count,
+)
 
 Tensor = torch.Tensor
+
+ENCODERS = {
+    "hash": HashGridEncoder,
+    "soa": HashGridEncoderSoA,
+    "fused": HashGridEncoderFused,
+    "folded": HashGridEncoderFolded,
+    "grouped": HashGridEncoderGrouped,
+}
+# Encoders that store a cell's 8 corners in one row: their rows a level drop
+# 8x, so that the parameter count is the reference layout's (2^19 entries x
+# 2 features == 2^16 rows x 8 corners x 2).
+_CORNER_ROWS = ("fused", "folded", "grouped")
 
 
 class _TruncExp(torch.autograd.Function):
@@ -126,15 +145,63 @@ def _density(h: Tensor, selector: Tensor) -> Tensor:
     return torch.where(selector[..., None], trunc_exp(h.to(torch.float32) - 1), 0.0)
 
 
+def _unit_box_soa(x, aabb: Tensor, unbounded: bool):
+    """:func:`_unit_box` on an ``(xs, ys, zs)`` tuple, each component by
+    itself (``ngp.py:190-216``): the contraction's norm is ``sqrt(x x + y y
+    + z z)`` as written there."""
+    xs, ys, zs = x
+    lo, hi = aabb[:3], aabb[3:]
+    u = [(c - lo[i]) / (hi[i] - lo[i]) for i, c in enumerate((xs, ys, zs))]
+    if unbounded:
+        c = [v * 2 - 1 for v in u]
+        mag = torch.sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2]).clamp(min=1e-6)
+        scale = torch.where(mag > 1, (2 - 1 / mag) / mag, 1.0)
+        u = [v * scale / 4 + 0.5 for v in c]
+    selector = (u[0] > 0.0) & (u[0] < 1.0) & (u[1] > 0.0) & (u[1] < 1.0) & (u[2] > 0.0) & (u[2] < 1.0)
+    return tuple(u), selector
+
+
 def _unit_box(x: Tensor, aabb: Tensor, unbounded: bool) -> Tuple[Tensor, Tensor]:
     """Positions mapped to the encoder's ``[0, 1]^3`` (through the scene
     contraction when ``unbounded``) and the mask of those strictly
     inside."""
+    if isinstance(x, (tuple, list)):
+        return _unit_box_soa(x, aabb, unbounded)
     if unbounded:
         u = contract_to_unisphere(x, aabb)
     else:
         u = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
     return u, ((u > 0.0) & (u < 1.0)).all(dim=-1)
+
+
+def _make_encoder(
+    encoder_type: str, n_levels: int, n_features_per_level: int, log2_hashmap_size: int,
+    base_resolution: int, max_resolution: int, compute_dtype: Optional[torch.dtype],
+    table_grad: str, factor_pack: str, device, generator,
+) -> nn.Module:
+    """A field's encoder, built as the JAX package's ``setup`` builds it
+    (``ngp.py:117-138``): ``log2_hashmap_size - 3`` for the corner-per-row
+    encoders, ``compute_dtype`` for fused and grouped only, the table
+    gradient's route for fused (grouped has one, K6 under bf16; the others
+    take autograd's)."""
+    if encoder_type not in ENCODERS:
+        raise ValueError(f"encoder_type {encoder_type!r} not in {tuple(ENCODERS)}")
+    kw = dict(
+        n_levels=n_levels,
+        n_features_per_level=n_features_per_level,
+        log2_hashmap_size=log2_hashmap_size - (3 if encoder_type in _CORNER_ROWS else 0),
+        base_resolution=base_resolution,
+        max_resolution=max_resolution,
+        device=device,
+        generator=generator,
+    )
+    if encoder_type == "fused":
+        return HashGridEncoderFused(compute_dtype=compute_dtype, table_grad=table_grad, factor_pack=factor_pack, **kw)
+    if (table_grad, factor_pack) != ("factor", "u10"):
+        raise ValueError(f"the {encoder_type} encoder takes no table_grad or factor_pack")
+    if encoder_type == "grouped":
+        return HashGridEncoderGrouped(compute_dtype=compute_dtype, **kw)
+    return ENCODERS[encoder_type](**kw)
 
 
 class NGPRadianceField(nn.Module):
@@ -172,29 +239,11 @@ class NGPRadianceField(nn.Module):
             torch.tensor(list(aabb), dtype=torch.float32, device=device),
             persistent=False,  # configuration, not a weight
         )
-        # Each fused or grouped row stores 8 corners, so the per-level row
-        # count drops 8x and the parameter budget matches the reference
-        # layout (2^19 entries x 2 features == 2^16 rows x 8 corners x 2).
-        enc_kw = dict(
-            n_levels=n_levels,
-            n_features_per_level=n_features_per_level,
-            log2_hashmap_size=log2_hashmap_size - 3,
-            base_resolution=base_resolution,
-            max_resolution=max_resolution,
-            compute_dtype=compute_dtype,
-            device=device,
-            generator=generator,
+        self.encoder_type = encoder_type
+        self.encoder = _make_encoder(
+            encoder_type, n_levels, n_features_per_level, log2_hashmap_size, base_resolution,
+            max_resolution, compute_dtype, table_grad, factor_pack, device, generator,
         )
-        if encoder_type == "fused":
-            self.encoder = HashGridEncoderFused(table_grad=table_grad, factor_pack=factor_pack, **enc_kw)
-        elif encoder_type == "grouped":
-            # Its table gradient has one route: K6 under bf16, autograd in
-            # float32.
-            if (table_grad, factor_pack) != ("factor", "u10"):
-                raise ValueError("the grouped encoder takes no table_grad or factor_pack")
-            self.encoder = HashGridEncoderGrouped(**enc_kw)
-        else:
-            raise ValueError(f"encoder_type {encoder_type!r} not in ('fused', 'grouped')")
         width = mlp_width
         self.mlp_base = nn.Sequential(
             _lecun_linear(self.encoder.latent_dim, width, generator),
@@ -212,11 +261,29 @@ class NGPRadianceField(nn.Module):
                 _lecun_linear(width, 3, generator),
             ).to(device)
 
-    def query_density(self, x: Tensor, return_feat: bool = False):
+    def paired_safe_levels(self, step_size: float, chunk: int = 4, margin: float = 2.0) -> int:
+        """The coarsest levels safe for the fused encoder's chunk-paired
+        gathers at a world-space marching ``step_size`` (``ngp.py:160-180``);
+        0 for the other encoders."""
+        if self.encoder_type != "fused":
+            return 0
+        aabb = self.aabb.detach().cpu().numpy()
+        span = float(step_size / (aabb[3:] - aabb[:3]).min())
+        return paired_safe_level_count(self.encoder.resolutions, span, chunk=chunk, margin=margin)
+
+    def query_density(self, x, return_feat: bool = False, paired_levels: int = 0):
         """Density ``(..., 1)`` (and geometry features) at positions
-        ``(..., 3)``; zero outside the box."""
+        ``(..., 3)``, or an ``(xs, ys, zs)`` tuple of 1-D tensors (the fused
+        and grouped encoders only, as the JAX package asserts); zero outside
+        the box.  ``paired_levels`` goes to the fused encoder."""
+        if isinstance(x, (tuple, list)) and self.encoder_type not in ("fused", "grouped"):
+            raise ValueError("an (xs, ys, zs) input needs the fused or grouped encoder")
         u, selector = _unit_box(x, self.aabb, self.unbounded)
-        h = _mlp(self.mlp_base, self.encoder(u), self.compute_dtype)
+        if paired_levels and self.encoder_type == "fused":
+            enc = self.encoder(u, paired_levels=paired_levels)
+        else:
+            enc = self.encoder(u)
+        h = _mlp(self.mlp_base, enc, self.compute_dtype)
         density_before, feat = h[..., :1], h[..., 1:]
         density = _density(density_before, selector)
         if return_feat:
@@ -225,14 +292,16 @@ class NGPRadianceField(nn.Module):
 
     def _query_rgb(self, direction: Optional[Tensor], embedding: Tensor) -> Tensor:
         if self.use_viewdirs and direction is not None:
+            if isinstance(direction, (tuple, list)):
+                direction = torch.stack(list(direction), dim=-1)
             sh = spherical_harmonics_deg4(direction).to(embedding.dtype)
             h = torch.cat([sh, embedding], dim=-1)
         else:
             h = embedding
         return torch.sigmoid(_mlp(self.mlp_head, h, self.compute_dtype).to(torch.float32))
 
-    def forward(self, positions: Tensor, directions: Optional[Tensor] = None):
-        density, embedding = self.query_density(positions, return_feat=True)
+    def forward(self, positions, directions=None, paired_levels: int = 0):
+        density, embedding = self.query_density(positions, return_feat=True, paired_levels=paired_levels)
         return self._query_rgb(directions, embedding), density
 
 
@@ -241,12 +310,12 @@ class NGPDensityField(nn.Module):
     ``forward(positions (..., 3))`` returns densities ``(..., 1)``, zero
     outside the box (or the contracted sphere when ``unbounded``).
 
-    Its encoder is the fused one, ``2^(log2_hashmap_size - 3)`` rows a level
-    of 8 corners each.  The rows are ``8 * n_features_per_level`` wide, 16
-    at the default F = 2, and only 128-wide rows have a table-gradient
-    kernel, so autograd differentiates the row gather, as the JAX package's
-    autodiff does for these nets (its factor and Pallas routes need
-    ``8 F == 128``, ``hash_soa.py:275-280``).
+    Its encoder is any of the five (``encoder_type``, fused by default),
+    built as the radiance field builds it; the JAX package passes it no
+    ``table_grad``.  At the default F = 2 the fused rows are 16 wide and
+    only 128-wide rows have a table-gradient kernel, so autograd
+    differentiates the row gather, as the JAX package's autodiff does for
+    these nets (``hash_soa.py:275-280``).
     """
 
     def __init__(
@@ -260,6 +329,7 @@ class NGPDensityField(nn.Module):
         log2_hashmap_size: int = 17,
         mlp_width: int = 64,
         *,
+        encoder_type: str = "fused",
         compute_dtype: Optional[torch.dtype] = None,
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
@@ -268,20 +338,15 @@ class NGPDensityField(nn.Module):
         device = resolve_device(device)
         self.compute_dtype = None if compute_dtype == torch.float32 else compute_dtype
         self.unbounded = unbounded
+        self.encoder_type = encoder_type
         self.register_buffer(
             "aabb",
             torch.tensor(list(aabb), dtype=torch.float32, device=device),
             persistent=False,  # configuration, not a weight
         )
-        self.encoder = HashGridEncoderFused(
-            n_levels=n_levels,
-            n_features_per_level=n_features_per_level,
-            log2_hashmap_size=log2_hashmap_size - 3,
-            base_resolution=base_resolution,
-            max_resolution=max_resolution,
-            compute_dtype=compute_dtype,
-            device=device,
-            generator=generator,
+        self.encoder = _make_encoder(
+            encoder_type, n_levels, n_features_per_level, log2_hashmap_size, base_resolution,
+            max_resolution, compute_dtype, "factor", "u10", device, generator,
         )
         self.mlp_base = nn.Sequential(
             _lecun_linear(self.encoder.latent_dim, mlp_width, generator),

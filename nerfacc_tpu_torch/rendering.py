@@ -1,7 +1,7 @@
 """Render drivers: the occupancy-grid training and inference renderers, and
 the proposal-network renderer.
 
-Port of ``nerfacc_tpu/rendering.py:38-53,101-278,281-475``.
+Port of ``nerfacc_tpu/rendering.py:38-475``.
 
 :func:`occgrid_render_rays` is the training path: one fused traversal and
 compaction into a fixed sample capacity
@@ -42,7 +42,7 @@ from torch.profiler import record_function
 
 from .estimators.occ_grid import OccGridEstimator, OccGridState
 from .estimators.prop_net import PropNetEstimator
-from .grid import num_ladder_steps, traverse_grids
+from .grid import chunked_ray_components, num_ladder_steps, traverse_grids
 from .pack import compact_indices_from_counts
 from .volrend import (
     accumulate_along_rays,
@@ -85,6 +85,7 @@ def occgrid_render_rays(
     sample_capacity: Optional[int] = None,
     max_macro_segments: int = 24,
     refilter_capacity: Optional[int] = None,
+    rgb_sigma_soa_fn: Optional[Callable] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, dict]:
     """Render a ray batch for training (``rendering.py:101-278``).
 
@@ -105,6 +106,13 @@ def occgrid_render_rays(
     runs on fewer samples; that layout is no longer sorted by ray (its
     padding decodes to the first slot's ray), so the per-ray sums take
     ``index_add_``.
+
+    With ``rgb_sigma_soa_fn`` the field is called as ``rgb_sigma_soa_fn((ox,
+    oy, oz), (dx, dy, dz), t_starts, t_ends)`` on each slot's ray
+    components (``rendering.py:172-255``), gathered by ``ray_indices`` after
+    the refilter (the JAX package carries them through its compaction and
+    permutes them with the refilter's samples: the same floats);
+    ``rgb_sigma_fn`` is then not called.
     """
     n_rays = rays_o.shape[0]
     with record_function("traverse_and_compact"):
@@ -144,7 +152,12 @@ def occgrid_render_rays(
     # The field runs in its own range, before rendering, so that a profile
     # tells the two apart.
     with record_function("field_forward"):
-        field_out = rgb_sigma_fn(t_starts, t_ends, ray_indices)
+        if rgb_sigma_soa_fn is not None:
+            # The refilter's layout is not chunk-aligned: one gather a slot.
+            comps = chunked_ray_components(rays_o, rays_d, ray_indices, chunk=1)
+            field_out = rgb_sigma_soa_fn(*comps, t_starts, t_ends)
+        else:
+            field_out = rgb_sigma_fn(t_starts, t_ends, ray_indices)
     with record_function("rendering"):
         colors, opacities, depths, extras = rendering(
             t_starts,

@@ -21,6 +21,12 @@ Gradients come from autograd through these forms; for the flat sums they
 are the reversed segmented sums the JAX package writes by hand
 (``scan.py:142-179``).  The product scan only multiplies, so its autograd
 gradient is exact at a zero too (``tests/test_scan.py:86``).
+
+The flag-form scans :func:`seg_inclusive_sum`, :func:`seg_exclusive_sum`,
+:func:`seg_inclusive_prod` and :func:`seg_exclusive_prod` take the
+segment-start flags themselves (``scan.py:143-189``).  The two sums carry
+the JAX package's hand-written gradients: the reversed segmented sum of the
+cotangent, inclusive or exclusive, over the mirrored (segment-end) flags.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ __all__ = [
     "exclusive_sum",
     "inclusive_prod",
     "exclusive_prod",
+    "seg_inclusive_sum",
+    "seg_exclusive_sum",
+    "seg_inclusive_prod",
+    "seg_exclusive_prod",
 ]
 
 
@@ -97,6 +107,65 @@ def _seg_inclusive_prod(x: Tensor, flags: Tensor) -> Tensor:
     return out
 
 
+def _end_flags(flags: Tensor) -> Tensor:
+    """Segment-end flags, the mirror of the start flags."""
+    out = torch.ones_like(flags)
+    if flags.shape[0] > 1:
+        out[:-1] = flags[1:]
+    return out
+
+
+def _reverse_seg_sums(g: Tensor, flags: Tensor):
+    """``(inclusive, exclusive)`` segmented sums of ``g`` taken from each
+    segment's end towards its start."""
+    inc, exc = _seg_sums(g.flip(0), _end_flags(flags).flip(0))
+    return inc.flip(0), exc.flip(0)
+
+
+class _SegSum(torch.autograd.Function):
+    """Segmented sum, inclusive or exclusive (``kind`` 0 or 1), whose
+    gradient is the same kind of sum of the cotangent, reversed."""
+
+    @staticmethod
+    def forward(ctx, x, flags, kind):
+        ctx.save_for_backward(flags)
+        ctx.kind = kind
+        return _seg_sums(x, flags)[kind]
+
+    @staticmethod
+    def backward(ctx, g):
+        (flags,) = ctx.saved_tensors
+        return _reverse_seg_sums(g, flags)[ctx.kind], None, None
+
+
+def seg_inclusive_sum(x: Tensor, flags: Tensor) -> Tensor:
+    """Inclusive sum of ``x (n,)`` within the segments that the bool
+    ``flags (n,)`` start (``flags[0]`` must be set).  Its gradient is the
+    reversed segmented inclusive sum of the cotangent (``scan.py:151``)."""
+    return _SegSum.apply(x, flags, 0)
+
+
+def seg_exclusive_sum(x: Tensor, flags: Tensor) -> Tensor:
+    """Exclusive sum of ``x`` within the segments that ``flags`` start: 0
+    at each segment's first element.  Its gradient is the reversed
+    segmented exclusive sum of the cotangent (``scan.py:175``)."""
+    return _SegSum.apply(x, flags, 1)
+
+
+def seg_inclusive_prod(x: Tensor, flags: Tensor) -> Tensor:
+    """Inclusive product of ``x`` within the segments that ``flags`` start;
+    autograd's gradient only multiplies, so it is exact at a zero."""
+    return _seg_inclusive_prod(x, flags)
+
+
+def seg_exclusive_prod(x: Tensor, flags: Tensor) -> Tensor:
+    """Exclusive product of ``x`` within the segments that ``flags`` start:
+    1 at each segment's first element."""
+    inc = _seg_inclusive_prod(x, flags)
+    shifted = torch.cat([torch.ones_like(inc[:1]), inc[:-1]])
+    return torch.where(flags, torch.ones_like(inc), shifted)
+
+
 def inclusive_sum(
     inputs: Tensor,
     packed_info: Optional[Tensor] = None,
@@ -144,7 +213,4 @@ def exclusive_prod(
             [torch.ones_like(inputs[..., :1]), inputs[..., :-1]], dim=-1
         )
         return torch.cumprod(shifted, dim=-1)
-    flags = _resolve_flags(inputs, packed_info, ray_indices)
-    inc = _seg_inclusive_prod(inputs, flags)
-    shifted = torch.cat([torch.ones_like(inc[:1]), inc[:-1]])
-    return torch.where(flags, torch.ones_like(inc), shifted)
+    return seg_exclusive_prod(inputs, _resolve_flags(inputs, packed_info, ray_indices))

@@ -20,8 +20,9 @@
   the ~1e-5 the occupancies differ by flips about 200 of 32768 cells, all
   within 5e-6 of the threshold, and the traversals then differ by those
   cells: up to 8.2e-3 after step 16.
-- Options the port does not have yet raise, and the default device raises
-  without a card.
+- Options the port does not have yet raise; ``--encoder hash|soa|folded``
+  builds the JAX examples' fields; the default device raises without a
+  card.
 """
 
 import jax
@@ -33,6 +34,7 @@ import torch
 
 from nerfacc_tpu.datasets.procedural import make_loaders as j_make_loaders
 from nerfacc_tpu.estimators.occ_grid import OccGridEstimator as JEstimator
+from nerfacc_tpu.models.ngp import NGPDensityField as JDensity
 from nerfacc_tpu.models.ngp import NGPRadianceField as JField
 from nerfacc_tpu.rendering import gather_ray_od as j_gather_ray_od
 from nerfacc_tpu.rendering import occgrid_render_rays as j_render
@@ -281,16 +283,55 @@ def test_train_loop_matches_the_jax_example_over_32_steps(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("encoder", "hash", "item 6"), ("encoder", "soa", "item 6"), ("encoder", "folded", "item 6"),
     ("field", "tensorf", "item 8"), ("field", "kplanes", "item 8"),
 ])
 def test_unported_choices_raise_with_their_roadmap_item(flag, value, item):
     args = occ_cli.parse_args(["--smoke", "--device", "cpu", f"--{flag}", value])
     with pytest.raises(NotImplementedError, match=item):
         occ_cli.setup(args)
-    if flag == "encoder":
-        with pytest.raises(NotImplementedError, match=item):
-            prop_cli.setup(prop_cli.parse_args(["--smoke", "--device", "cpu", "--encoder", value]))
+
+
+def _n_params(tree) -> int:
+    return sum(int(np.prod(np.shape(a))) for a in jax.tree_util.tree_leaves(tree))
+
+
+@pytest.mark.parametrize("encoder", ["hash", "soa", "folded"])
+def test_both_clis_build_each_encoder_as_the_jax_examples_do(encoder, monkeypatch):
+    # --encoder hash|soa|folded through each CLI's setup on the CPU: the
+    # radiance field (and the prop CLI's proposal net) has the JAX example's
+    # parameter count (examples/train_ngp_nerf_occ.py:162-175,
+    # train_ngp_nerf_prop.py:107-125) and, on the JAX field's converted
+    # weights, its forward within atol 1e-6.  The procedural views are
+    # shrunk to 8x8: the field does not depend on them.
+    real = tproc.make_loaders
+    for cli in (occ_cli, prop_cli):
+        monkeypatch.setattr(cli, "make_loaders", lambda **kw: real(**dict(kw, width=8, height=8, n_train=1)))
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-0.9, 0.9, (64, 3)).astype(np.float32)
+    d = x / np.linalg.norm(x, axis=-1, keepdims=True)
+    fused = encoder == "folded"
+    jkw = dict(encoder_type=encoder, n_levels=8 if fused else 16, n_features_per_level=16 if fused else 2,
+               log2_hashmap_size=18 if fused else 19)
+    run = occ_cli.setup(occ_cli.parse_args(["--smoke", "--device", "cpu", "--encoder", encoder]))[0]
+    prun = prop_cli.setup(prop_cli.parse_args(["--smoke", "--device", "cpu", "--encoder", encoder]))[0]
+    for field in (run.field, prun.field):
+        assert field.encoder_type == encoder
+        aabb = tuple(field.aabb.tolist())
+        jfield = JField(aabb=aabb, **jkw)
+        params = jax.jit(jfield.init)(jax.random.PRNGKey(0), jnp.zeros((8, 3)), jnp.zeros((8, 3)))
+        assert sum(p.numel() for p in field.parameters()) == _n_params(params)
+        field.load_state_dict(field_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+        rgb_j, sig_j = jax.jit(jfield.apply)(params, jnp.asarray(x), jnp.asarray(d))
+        rgb_t, sig_t = field(torch.from_numpy(x), torch.from_numpy(d))
+        np.testing.assert_allclose(rgb_t.detach().numpy(), np.asarray(rgb_j), atol=1e-6)
+        np.testing.assert_allclose(sig_t.detach().numpy(), np.asarray(sig_j), atol=1e-6)
+    (net,) = prun.prop_nets
+    jnet = JDensity(aabb=tuple(net.aabb.tolist()), n_levels=5, max_resolution=128, encoder_type=encoder)
+    nparams = jax.jit(jnet.init)(jax.random.PRNGKey(1), jnp.zeros((8, 3)))
+    assert net.encoder_type == encoder and sum(p.numel() for p in net.parameters()) == _n_params(nparams)
+    net.load_state_dict(field_from_jax(jax.tree_util.tree_map(np.asarray, nparams)))
+    np.testing.assert_allclose(net(torch.from_numpy(x)).detach().numpy(), np.asarray(jnet.apply(nparams, jnp.asarray(x))),
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("cli", [occ_cli, prop_cli, render_cli], ids=["occ", "prop", "render"])

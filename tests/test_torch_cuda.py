@@ -1077,3 +1077,124 @@ def test_mlp_nerf_step_launches_k1_and_its_update_k3(cuda):
     (loss_c, n_c), (loss_h, n_h) = results
     assert n_c == n_h > 0 and int(state.binaries.sum()) > 0
     assert loss_c == pytest.approx(loss_h, rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cone", [0.0, 0.008], ids=["uniform", "cone"])
+def test_traverse_grids_skip_probes_launch_k1_and_match_the_plain_query(cuda, cone, monkeypatch):
+    # traverse_grids' macro-skip branch: its skip probes go through K1 on
+    # the packed skip grid (mip_pad=1), exact against the plain query, and
+    # the traversal keeps the dense branch's samples (within 1e-5).
+    import nerfacc_tpu_torch.grid as grid_mod
+
+    rng = np.random.default_rng(5)
+    g = (np.arange(64) + 0.5) / 64 * 2 - 1
+    gx, gy, gz = np.meshgrid(g, g, g, indexing="ij")
+    shell = np.abs(np.sqrt(gx**2 + gy**2 + gz**2) - 0.5) < 0.1
+    binaries = torch.from_numpy(np.stack([shell, shell]) if cone else shell[None]).to(cuda)
+    skip = grid_mod.build_skip_grid(binaries, 4)
+    base = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], device=cuda)
+    aabbs = torch.stack([grid_mod._enlarge_aabb(base, 2**i) for i in range(binaries.shape[0])])
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = torch.from_numpy(-3.0 * d).to(cuda)
+    d = torch.from_numpy(d).to(cuda)
+    kw = dict(step_size=0.01, cone_angle=cone, max_lattice_steps=640, traverse_steps_limit=256,
+              packed_grids=bitpack_grid(binaries))
+    calls = []
+    real = grid_mod.occupancy_query
+
+    def recording(packed, aabb, px, py, pz, rz, mip_pad=0):
+        calls.append((packed, aabb, (px, py, pz), rz, mip_pad))
+        return real(packed, aabb, px, py, pz, rz=rz, mip_pad=mip_pad)
+
+    dense = traverse_grids(o, d, binaries, aabbs, **kw)
+    monkeypatch.setattr(grid_mod, "occupancy_query", recording)
+    before = real.launches
+    macro = traverse_grids(o, d, binaries, aabbs, skip_grid=skip, packed_skip=bitpack_grid(skip),
+                           macro_stride=16, max_macro_segments=24, **kw)
+    assert real.launches == before + 2
+    (probe,) = [c for c in calls if c[4] == 1]
+    packed, aabb, pts, rz, _ = probe
+    assert torch.equal(real(packed, aabb, *pts, rz=rz, mip_pad=1), occupancy_query_plain(packed, aabb, *pts, rz=rz, mip_pad=1))
+    assert torch.equal(dense.num_valid, macro.num_valid) and int(dense.num_valid.sum()) > 0
+    for a, b in ((dense.t_starts, macro.t_starts), (dense.t_ends, macro.t_ends)):
+        torch.testing.assert_close(torch.where(dense.is_valid, a, 0.0), torch.where(macro.is_valid, b, 0.0),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_soa_route_launches_k2_and_k3_as_the_array_route(cuda):
+    # The SoA route (carried ray components, the field on tuples, the
+    # update's tuple probes) launches K2 once a step and K3 once an update,
+    # as the array route does, with the same loss and table gradient.
+    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays
+
+    est = OccGridEstimator(roi_aabb=[-1.5] * 3 + [1.5] * 3, resolution=128, levels=1, skip_factor=2)
+    g = (np.arange(128) + 0.5) / 128 * 2 - 1
+    gx, gy, gz = np.meshgrid(g, g, g, indexing="ij")
+    state = est.set_binaries(est.init(cuda), torch.from_numpy(np.abs(np.sqrt(gx**2 + gy**2 + gz**2) - 0.45) < 0.08)[None])
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_o, rays_d = torch.from_numpy(-3.0 * d).to(cuda), torch.from_numpy(d).to(cuda)
+    pixels = torch.from_numpy(rng.random((1024, 3), dtype=np.float32)).to(cuda)
+    jitter = torch.from_numpy(rng.random(1024, dtype=np.float32)).to(cuda)
+    draws = est.make_draws(10**9, torch.Generator().manual_seed(3), device=cuda)
+    out = {}
+    for soa in (False, True):
+        field = NGPRadianceField(aabb=[-1.5] * 3 + [1.5] * 3, n_levels=4, n_features_per_level=16, log2_hashmap_size=18,
+                                 compute_dtype=torch.bfloat16, device=cuda, generator=torch.Generator().manual_seed(0))
+
+        def rgb_sigma_fn(ts, te, ri):
+            o, dd = gather_ray_od(rays_o, rays_d, ri)
+            rgb, sigma = field(o + ((ts + te) / 2)[:, None] * dd, dd)
+            return rgb, sigma[..., 0]
+
+        def soa_fn(o, dd, ts, te):
+            mid = (ts + te) / 2
+            rgb, sigma = field(tuple(o[k] + mid * dd[k] for k in range(3)), dd)
+            return rgb, sigma[..., 0]
+
+        tg.table_grad_u10.launches = tg.cell_max.launches = 0
+        colors, *_ = occgrid_render_rays(
+            rgb_sigma_fn, None, est, state, rays_o, rays_d, render_step_size=5e-3, render_bkgd=torch.ones(3, device=cuda),
+            stratified=True, jitter=jitter, sample_capacity=1 << 15, max_macro_segments=4,
+            rgb_sigma_soa_fn=soa_fn if soa else None,
+        )
+        loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
+        loss.backward()
+        new = est._update(state, 10**9, lambda x: field.query_density(x) * 5e-3, draws=draws, soa_positions=soa)
+        torch.cuda.synchronize()
+        out[soa] = (tg.table_grad_u10.launches, tg.cell_max.launches, float(loss), field.encoder.table.grad.cpu(),
+                    new.occs.cpu())
+    (k2a, k3a, la, ga, oa), (k2s, k3s, ls, gs, os_) = out[False], out[True]
+    assert (k2s, k3s) == (k2a, k3a) == (1, 1)
+    assert ls == pytest.approx(la, rel=1e-6)
+    torch.testing.assert_close(gs, ga, rtol=0, atol=1e-6 * float(ga.abs().max()))
+    assert torch.equal(os_, oa)
+
+
+@pytest.mark.cuda
+def test_hash_encoder_index_add_backward_matches_the_cpu(cuda):
+    # The tcnn-parity encoder at the reference's 16 levels: forward equal to
+    # the CPU's, and the table gradient (index_select's backward, one
+    # index_add_ of float32 atomics on the card) within 1e-5 of its largest
+    # entry (the atomics add in another order).
+    from nerfacc_tpu_torch.models.encoding import HashGridEncoder
+
+    rng = np.random.default_rng(1)
+    x = rng.random((1 << 15, 3), dtype=np.float32)
+    r = rng.standard_normal((1 << 15, 32)).astype(np.float32)
+    res = {}
+    for device in (cuda, torch.device("cpu")):
+        enc = HashGridEncoder(n_levels=16, log2_hashmap_size=15, device=device, generator=torch.Generator().manual_seed(0))
+        out = enc(torch.from_numpy(x).to(device))
+        (out * torch.from_numpy(r).to(device)).sum().backward()
+        res[device.type] = (out.detach().cpu(), enc.table.grad.cpu())
+    (oa, ga), (ob, gb) = res["cuda"], res["cpu"]
+    torch.testing.assert_close(oa, ob, rtol=1e-6, atol=1e-10)
+    torch.testing.assert_close(ga, gb, rtol=0, atol=1e-5 * float(gb.abs().max()))
+    assert float(gb.abs().max()) > 0

@@ -226,6 +226,21 @@ def test_one_grouped_train_step_matches_jax(cdt):
     _check_one_train_step(cdt, GROUPED)
 
 
+# The other encoders at the same small size: the tcnn-parity hash and soa
+# (float32 tables, T = 2^12) and the folded one (T = 2^9 rows of 8 corners);
+# autograd's table gradient on both sides.
+NEW_ENCODERS = {
+    "hash": dict(encoder_type="hash", n_levels=2, n_features_per_level=2),
+    "soa": dict(encoder_type="soa", n_levels=2, n_features_per_level=2),
+    "folded": dict(encoder_type="folded", n_levels=2, n_features_per_level=4),
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_ENCODERS))
+def test_one_train_step_with_each_new_encoder_matches_jax(name):
+    _check_one_train_step(None, NEW_ENCODERS[name])
+
+
 def _check_one_train_step(cdt, enc):
     est_j, est_t, js, ts, jfield, params, tfield = _train_setup(cdt, enc)
     rng = np.random.default_rng(0)

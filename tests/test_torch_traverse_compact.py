@@ -52,6 +52,8 @@ def _rays(seed, n):
 
 def _assert_same(got, want, cone_angle):
     for name in got._fields:
+        if getattr(got, name) is None and getattr(want, name) is None:
+            continue  # ray_comps without carry_rays
         g = getattr(got, name).numpy()
         w = np.asarray(getattr(want, name))
         if cone_angle > 0 and name in ("t_starts", "t_ends", "termination_planes"):
