@@ -7,7 +7,7 @@
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
-15 none):
+18 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -119,8 +119,10 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    loss below the first 16 steps'.  Needs no other phase.
 14. T-NeRF and NDR: ``train_mlp_tnerf``'s T-NeRF (``TNERF_*``: res-128
    grid, 1024 rays x 48 slots) for 200 steps on the dynamic procedural
-   scene, step ms and rays/s, K1 and K3 counted; one T-NeRF step and one NDR
-   step at 256 rays on the card against the CPU.  Needs no other phase.
+   scene, step ms and rays/s, K1 and K3 counted and held against their
+   plain versions on the phase's own inputs, a profile of three late steps;
+   one T-NeRF step and one NDR step at 256 rays on the card against the
+   CPU.  Needs no other phase.
 15. the other encoders and the structure-of-arrays route: (a) ``bench.py``'s
    step with ``BENCH_ENCODER=hash BENCH_LEVELS=16 BENCH_FEATS=2
    BENCH_LOG2T=19`` (tcnn's parametrisation, the table gradient autograd's
@@ -140,6 +142,30 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    folded steps; (d) ``traverse_grids``' macro-skip branch on phase 3's grid
    against its dense branch, K1's skip probes exact and counted.  Needs no
    other phase.
+16. the plug-in fields TensoRF and K-Planes (``PLUGIN_*``): each trained
+   through ``train_ngp_nerf_occ``'s own ``train`` (``--field tensorf|kplanes``,
+   its synthetic block: aabb +-1.5, res-128 grid, step 5e-3, 8192 rays,
+   2^18 slots) at the CLI's widths on its procedural scene (160x160) for
+   up to 45 s of train time: step and update ms, kept samples/s, the eval
+   views' PSNR, peak memory, first and last loss; K1 as often a step as the
+   traversal queries it and K3 once an update, each held against its plain
+   version on the phase's own inputs; a profile of three late steps with
+   the plane and line gathers' backward (``index_add_``) shares; one step at
+   256 rays on the card against the CPU (loss rtol 1e-5, gradients 3e-4 of
+   their largest entry); the last 16 steps' mean loss below the first 16's.
+17. TiNeuVox: phase 14's run with ``train_mlp_tnerf --field tineuvox``
+   (resolution 96): step ms, rays/s, K1 and K3 counted and held against
+   their plain versions, a profile with the voxel taps' backward share, one
+   step at 256 rays on the card against the CPU.
+18. BARF: ``train_barf`` at its non-smoke widths (8 x 256 field, 24 views of
+   160x160, 64^3 grid, 1024 rays x 64 slots, pose noise 0.10) with its
+   schedules over ``BARF_MAX_STEPS``: the initial and refined rotation and
+   translation errors (the refined rotation error must be below the
+   initial), the eval views' PSNR, step ms, K1's launches held against its
+   plain version (no K3 at 64^3), a profile with the shares of
+   ``gather_ray_od``'s backward and the scan's, and one step at 256 rays on
+   the card against the CPU, the pose gradient included (loss rtol 1e-5,
+   gradients 3e-4 of their largest entry).
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -323,7 +349,8 @@ def profile_window(run, stages, what: str, out_name: str) -> dict:
     innermost range whose span on the GPU timeline holds it, the rest to
     "unattributed"), and the top kernels.  The full table goes to
     ``chiprun_out/<out_name>``.  Returns the device's busy milliseconds and
-    each kernel's ``(ms, count)`` by name."""
+    each kernel's ``(ms, count)`` by name, and each stage's device
+    milliseconds."""
     import bisect
     import gc
     import itertools
@@ -398,7 +425,7 @@ def profile_window(run, stages, what: str, out_name: str) -> dict:
     (out / out_name).write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
     )
-    return dict(busy_ms=busy * 1e3, kernels=by_kernel)
+    return dict(busy_ms=busy * 1e3, kernels=by_kernel, stages=per_stage)
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms):
@@ -1910,8 +1937,6 @@ def train_quality(dev, card_line: str) -> dict:
     from nerfacc_tpu_torch.examples import render as render_cli
     from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as occ_cli
     from nerfacc_tpu_torch.examples.common import eval_metrics, psnr
-    from nerfacc_tpu_torch.ops import table_grad as tg
-    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -1943,8 +1968,7 @@ def train_quality(dev, card_line: str) -> dict:
     _, use_skip, *_ = run.estimator.plan_traversal(QUALITY_STEP, 0.0, train_ds.near,
                                                   max_macro_segments=QUALITY_MACRO)
     k1_per_step = 1 + int(use_skip)  # the lattice queries, and the skip probes
-    counted = {"K1": occupancy_query, "K2": tg.table_grad_u10, "K3": tg.cell_max, "K4-w3": tg.table_grad_w3,
-               "K4-w8": tg.table_grad_w8, "K5": tg.table_grad_sorted, "K6": tg.table_grad_pos}
+    counted = counted_kernels()
     launches = dict.fromkeys(counted, 0)
 
     def timed_train(until):
@@ -2095,29 +2119,22 @@ MLP_LOSS_RTOL, MLP_GRAD_TOL, NDR_GRAD_TOL = 1e-5, 5e-3, 5e-2
 def mlp_card_vs_cpu(label, step_fn, make_field, run, batch, grad_tol=MLP_GRAD_TOL) -> None:
     """One ``step_fn(run, *batch)`` (an MLP CLI's ``train_step``) on the
     card and on the CPU from ``run``'s weights and grid, with the same rays,
-    jitter and pixels (``batch``, CPU tensors): :func:`hold_step`."""
-    res = []
+    jitter and pixels (``batch``, CPU tensors): :func:`step_card_vs_cpu`.
+    The MLP CLIs' Adam has eps 1e-8, and the gradients are held only to
+    grad_tol of their largest entry: a parameter is held where |g| is above
+    1e-6 and ten gradient tolerances (held where |g| > 1e-9, one of
+    mlp.base.layers.3 was 2.075e-06 apart, and held where |g| > 1e-6, one
+    of NDR's 2.636e-06, measured on an H100)."""
     weights = {k: v.detach().cpu().clone() for k, v in run.field.state_dict().items()}
-    for device in (run.occ_state.occs.device, torch.device("cpu")):
+
+    def make_run(device):
         field = make_field(device)
         field.load_state_dict(weights)
-        r = type(run)(cfg=run.cfg, field=field, estimator=run.estimator, occ_state=state_on(run.occ_state, device),
-                      opt=torch.optim.Adam(field.parameters(), lr=run.opt.defaults["lr"]), generator=run.generator)
-        t0 = time.perf_counter()
-        loss, n_samp = step_fn(r, *(t.to(device) for t in batch))
-        res.append(dict(
-            loss=float(loss), n=int(n_samp), s=time.perf_counter() - t0,
-            grads={k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
-                   for k, p in field.named_parameters()},
-            params={k: p.detach().cpu() for k, p in field.named_parameters()},
-        ))
-    # The MLP CLIs' Adam has eps 1e-8, and the gradients are held only to
-    # grad_tol of their largest entry: a parameter is held where |g| is
-    # above 1e-6 and ten gradient tolerances (held where |g| > 1e-9, one of
-    # mlp.base.layers.3 was 2.075e-06 apart, and held where |g| > 1e-6, one
-    # of NDR's 2.636e-06; my chip runs, PR 12).
-    hold_step(label, res[0], res[1], MLP_LOSS_RTOL, grad_tol, f"{batch[0].shape[0]} rays, full width",
-              adam_eps=run.opt.defaults["eps"], held_tols=10.0)
+        return type(run)(cfg=run.cfg, field=field, estimator=run.estimator, occ_state=state_on(run.occ_state, device),
+                         opt=torch.optim.Adam(field.parameters(), lr=run.opt.defaults["lr"]), generator=run.generator)
+
+    step_card_vs_cpu(run.occ_state.occs.device, label, step_fn, make_run, batch, MLP_LOSS_RTOL, grad_tol,
+                     run.opt.defaults["eps"], f"{batch[0].shape[0]} rays, full width")
 
 
 def train_mlp(dev, card_line: str) -> dict:
@@ -2134,8 +2151,6 @@ def train_mlp(dev, card_line: str) -> dict:
     from nerfacc_tpu_torch.examples import train_mlp_nerf as cli
     from nerfacc_tpu_torch.examples.common import eval_metrics, psnr, render_image_chunked
     from nerfacc_tpu_torch.models.mlp import VanillaNeRFRadianceField
-    from nerfacc_tpu_torch.ops import table_grad as tg
-    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -2157,20 +2172,7 @@ def train_mlp(dev, card_line: str) -> dict:
     n_params = sum(p.numel() for p in run.field.parameters())
     _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], 0.0, cfg["near_plane"])
     k1_per_step = 1 + int(use_skip)  # the lattice queries, and the skip probes
-    counted = {"K1": occupancy_query, "K2": tg.table_grad_u10, "K3": tg.cell_max, "K4-w3": tg.table_grad_w3,
-               "K4-w8": tg.table_grad_w8, "K5": tg.table_grad_sorted, "K6": tg.table_grad_pos}
-    launches = dict.fromkeys(counted, 0)
     test = test_ds[0]
-
-    def timed_train(until):
-        before = {k: w.launches for k, w in counted.items()}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        losses, n_samp = cli.train(run, train_ds, until)
-        torch.cuda.synchronize()
-        for k, w in counted.items():
-            launches[k] += w.launches - before[k]
-        return losses, n_samp, time.perf_counter() - t
 
     def evaluate():
         torch.cuda.synchronize()
@@ -2180,39 +2182,17 @@ def train_mlp(dev, card_line: str) -> dict:
         return img, psnr(img, test["pixels"]), time.perf_counter() - t
 
     torch.cuda.reset_peak_memory_stats()
-    losses, n_samps, curve = [], [], []
-    train_s, late_ms, update_ms = 0.0, None, None
-    while run.step < MLP_MAX_STEPS and train_s < MLP_BUDGET_S:
-        seg_end = min(run.step + MLP_EVAL_EVERY, MLP_MAX_STEPS)
-        # Steps 16k+1 to 16k+15 run alone on the clock (no update among
-        # them), and step 16k + 16 with its update (a post-warm-up one).
-        w0 = (seg_end - 32) // 16 * 16 + 1
-        for part, until in enumerate((w0, w0 + 15, w0 + 16, seg_end)):
-            seg_losses, seg_n, dt = timed_train(until)
-            train_s += dt
-            losses += seg_losses
-            n_samps += seg_n
-            if part == 1:
-                late_ms = dt / 15 * 1e3
-            elif part == 2:
-                update_ms = dt * 1e3 - late_ms
-        _, p, _ = evaluate()
-        spr = float(torch.stack(n_samps[-MLP_EVAL_EVERY:]).float().mean()) / MLP_RAYS
-        occupied = float(run.occ_state.binaries.float().mean())
-        curve.append(dict(step=run.step, psnr=p, train_s=train_s))
-        print(f"mlp: step={run.step} psnr={p:.4f} train_s={train_s:.3f} samples/ray {spr:.2f} "
-              f"occupied cells {100 * occupied:.2f}%", flush=True)
-    n_timed = run.step
+    r = train_segments("mlp", lambda until: cli.train(run, train_ds, until), run, MLP_MAX_STEPS, MLP_BUDGET_S,
+                       MLP_EVAL_EVERY, counted_kernels(), lambda: {"psnr": evaluate()[1]})
+    n_timed, train_s, launches = run.step, r["train_s"], r["launches"]
+    late_ms, update_ms = r["late_ms"], r["update_ms"]
     peak = torch.cuda.max_memory_allocated()
-    total = int(torch.stack(n_samps).sum())
+    total = int(torch.stack(r["n_samps"]).sum())
     n_updates = (n_timed + cli.OCC_EVERY - 1) // cli.OCC_EVERY
-    want = dict.fromkeys(counted, 0)
-    want.update(K1=k1_per_step * n_timed, K3=n_updates)
-    if launches != want:
-        fail(f"mlp: launches {launches} over {n_timed} steps and {n_updates} updates, expected {want}")
-    first, last = float(losses[0]), float(losses[-1])
-    if not all(math.isfinite(float(x)) for x in losses):
-        fail("mlp: a loss is not finite")
+    check_launches("mlp", launches, n_timed, k1_per_step, n_updates)
+    # A step's loss follows its batch: the field learns when the last 16
+    # steps' mean loss is below the first 16 steps'.
+    first, last = falling("mlp", r["losses"])
 
     stages = ("fetch", "traverse_and_compact", "field_forward", "rendering", "backward", "optimizer", "occ_update")
     prof = profile_window(lambda: cli.train(run, train_ds, run.step + 3), stages,
@@ -2229,7 +2209,7 @@ def train_mlp(dev, card_line: str) -> dict:
         cli.occ_update(run, warmup=False)
 
     k3 = k3_on_update_inputs(update, dev)
-    img, p_final, eval_s = evaluate()
+    img, _, eval_s = evaluate()
     if not bool(torch.isfinite(img).all()) or not (0.0 <= float(img.min()) and float(img.max()) <= 1.0):
         fail("mlp: the eval image is not finite or outside [0, 1]")
     m = eval_metrics(img, test["pixels"])
@@ -2240,7 +2220,7 @@ def train_mlp(dev, card_line: str) -> dict:
         "rays_per_s": n_timed * MLP_RAYS / train_s, "samples_per_ray": spr,
         "occupied": float(run.occ_state.binaries.float().mean()), "peak_bytes": peak,
         "loss_first": first, "loss_last": last, "eval_rays_per_s": QUALITY_SIZE ** 2 / eval_s, "final": m,
-        "psnr_curve": curve, "k1_per_step": k1_per_step, "launches": {"K1": launches["K1"], "K3": launches["K3"]},
+        "psnr_curve": r["curve"], "k1_per_step": k1_per_step, "launches": {"K1": launches["K1"], "K3": launches["K3"]},
         "gather_backward_ms_3_steps": gather_ms, "gemm_ms_3_steps": gemm_ms, "device_ms_3_steps": prof["busy_ms"],
     }}), flush=True)
     print(f"mlp: {n_timed} steps in {train_s:.3f} s, late step {late_ms:.2f} ms, update {update_ms:.2f} ms, "
@@ -2248,10 +2228,6 @@ def train_mlp(dev, card_line: str) -> dict:
           f"loss first {first:.6f} last {last:.6f}, eval view {QUALITY_SIZE ** 2 / eval_s:.1f} rays/s PSNR "
           f"{m['psnr']:.4f} SSIM {m['ssim']:.4f}; K1 {launches['K1']} ({k1_per_step} a step), K3 {launches['K3']} "
           f"({n_updates} updates); max_memory_allocated {peak} B", flush=True)
-    # A step's loss follows its batch: the field learns when the last 16
-    # steps' mean loss is below the first 16 steps'.
-    if not float(torch.stack(losses[-16:]).mean()) < float(torch.stack(losses[:16]).mean()):
-        fail(f"mlp: the loss does not fall (first {first}, last {last})")
     if m["psnr"] < MLP_GATE_DB:
         fail(f"mlp: final PSNR {m['psnr']:.3f} dB is under {MLP_GATE_DB} dB")
 
@@ -2268,33 +2244,53 @@ def train_mlp(dev, card_line: str) -> dict:
     return dict(launches=launches, k1=k1, k3=k3)
 
 
-def train_tnerf(dev) -> None:
-    """Phase 14: ``train_mlp_tnerf``'s T-NeRF (``TNERF_*``) trained through
-    its own ``train`` for 200 steps on the dynamic procedural scene, with K1
-    and K3 counted; then one NDR step and one T-NeRF step at 256 rays, card
-    against CPU."""
+# The dynamic fields' phases and their card-against-CPU steps: (label, the
+# CLI's field, its seed, the gradient gate).
+DYNAMIC_PHASES = {
+    "tnerf": (14, (("T-NeRF", "tnerf", 0, MLP_GRAD_TOL), ("NDR", "ndr", 2, NDR_GRAD_TOL))),
+    "tineuvox": (17, (("TiNeuVox", "tineuvox", 0, MLP_GRAD_TOL),)),
+}
+
+
+def train_dynamic(dev, card_line, name) -> dict:
+    """Phase 14 (``name`` "tnerf") and phase 17 ("tineuvox", resolution 96):
+    ``train_mlp_tnerf --field name`` (``TNERF_*``) trained through its own
+    ``train`` for ``TNERF_STEPS`` steps on the dynamic procedural scene, K1
+    as often a step as the traversal queries it and K3 once an update,
+    counted; 15 late steps on the clock; the ``DYNAMIC_PHASES[name]`` steps
+    at 256 rays from the initial weights on the trained grid, card against
+    CPU; then a profile of three late steps, and K1 and K3 held against
+    their plain versions on the phase's own inputs.  Returns the launches
+    and K1's and K3's numbers."""
     from nerfacc_tpu_torch.datasets.procedural import make_dynamic_loaders
     from nerfacc_tpu_torch.examples import train_mlp_nerf as mlp_cli
     from nerfacc_tpu_torch.examples import train_mlp_tnerf as cli
-    from nerfacc_tpu_torch.models.mlp import NDRTNeRFRadianceField, TNeRFRadianceField
-    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
-    from nerfacc_tpu_torch.ops.table_grad import cell_max
 
     t_phase = time.perf_counter()
+    phase, held = DYNAMIC_PHASES[name]
     train_ds, _ = make_dynamic_loaders(num_rays=MLP_RAYS, width=TNERF_SIZE, height=TNERF_SIZE,
                                        n_train=TNERF_TRAIN_VIEWS, n_test=1, device=dev)
     cfg = dict(mlp_cli.build_config(procedural=False, smoke=False), sample_capacity=MLP_RAYS * cli.SAMPLES_PER_RAY)
-    cli.train(mlp_run(mlp_cli, cfg, TNeRFRadianceField(device=dev), dev, 1), train_ds, 2)  # warm-up
-    run = mlp_run(mlp_cli, cfg, TNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(0)), dev)
+
+    def field(device, seed=0, kind=name):
+        return cli.make_field(kind, cfg, smoke=False, device=device, generator=torch.Generator().manual_seed(seed))
+
+    cli.train(mlp_run(mlp_cli, cfg, field(dev, 1), dev, 1), train_ds, 2)  # warm-up
+    run = mlp_run(mlp_cli, cfg, field(dev), dev)
     _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], 0.0, cfg["near_plane"])
-    occupancy_query.launches = cell_max.launches = 0
+    k1_per_step = 1 + int(use_skip)
+    counted = counted_kernels()
+    before = {k: w.launches for k, w in counted.items()}
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses, n_samp = cli.train(run, train_ds, TNERF_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = {k: w.launches - before[k] for k, w in counted.items()}
     n_updates = (TNERF_STEPS + mlp_cli.OCC_EVERY - 1) // mlp_cli.OCC_EVERY
-    launches = {"K1": occupancy_query.launches, "K3": cell_max.launches}
+    check_launches(name, launches, TNERF_STEPS, k1_per_step, n_updates)
+    first, last = falling(name, losses)
     # Then 15 steps between two updates on the clock.
     cli.train(run, train_ds, (run.step // mlp_cli.OCC_EVERY + 1) * mlp_cli.OCC_EVERY + 1)
     torch.cuda.synchronize()
@@ -2302,31 +2298,41 @@ def train_tnerf(dev) -> None:
     cli.train(run, train_ds, run.step + 15)
     torch.cuda.synchronize()
     late_ms = (time.perf_counter() - t0) / 15 * 1e3
-    total = int(torch.stack(n_samp).sum())
-    first, last = float(losses[0]), float(losses[-1])
-    print(f"tnerf: {TNERF_STEPS} steps in {dt:.3f} s ({dt / TNERF_STEPS * 1e3:.2f} ms a step with its updates), "
-          f"late step {late_ms:.2f} ms, {TNERF_STEPS * MLP_RAYS / dt:.1f} rays/s, {total / dt:.1f} kept samples/s, "
-          f"{total / TNERF_STEPS / MLP_RAYS:.2f} samples a ray, loss first {first:.6f} last {last:.6f}; "
-          f"K1 {launches['K1']} ({1 + int(use_skip)} a step), K3 {launches['K3']} ({n_updates} updates)", flush=True)
-    if launches != {"K1": (1 + int(use_skip)) * TNERF_STEPS, "K3": n_updates}:
-        fail(f"tnerf: launches {launches} over {TNERF_STEPS} steps and {n_updates} updates")
-    if not all(math.isfinite(float(x)) for x in losses) or not (
-            float(torch.stack(losses[-16:]).mean()) < float(torch.stack(losses[:16]).mean())):
-        fail(f"tnerf: losses not finite or not falling (first {first}, last {last})")
-
+    # The card-against-CPU steps on this grid and batch, before the checks
+    # below step the run on.
     batch = train_ds[run.step]
     sel = slice(0, MLP_CPU_RAYS)
-    jitter = torch.from_numpy(np.random.default_rng(14).random(MLP_CPU_RAYS, dtype=np.float32))
+    jitter = torch.from_numpy(np.random.default_rng(phase).random(MLP_CPU_RAYS, dtype=np.float32))
     args = tuple(t.cpu() for t in (batch["rays"].origins[sel], batch["rays"].viewdirs[sel], batch["timestamps"][sel],
                                    batch["pixels"][sel], batch["color_bkgd"])) + (jitter,)
-    tnerf = mlp_run(mlp_cli, cfg, TNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(0)), dev)
-    tnerf.occ_state = run.occ_state  # the initial weights, on the trained grid
-    mlp_card_vs_cpu("T-NeRF", cli.train_step, lambda device: TNeRFRadianceField(device=device), tnerf, args)
-    ndr = mlp_run(mlp_cli, cfg, NDRTNeRFRadianceField(device=dev, generator=torch.Generator().manual_seed(2)), dev)
-    ndr.occ_state = run.occ_state
-    mlp_card_vs_cpu("NDR", cli.train_step, lambda device: NDRTNeRFRadianceField(device=device), ndr, args,
-                    grad_tol=NDR_GRAD_TOL)
-    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for label, kind, seed, tol in held:
+        probe = mlp_run(mlp_cli, cfg, field(dev, seed, kind), dev)
+        probe.occ_state = run.occ_state  # the initial weights, on the trained grid
+        mlp_card_vs_cpu(label, cli.train_step, lambda device, kind=kind: field(device, 0, kind), probe, args,
+                        grad_tol=tol)
+    total = int(torch.stack(n_samp).sum())
+    stages = ("traverse_and_compact", "field_forward", "rendering", "backward", "optimizer", "occ_update",
+              "voxel_gather_backward")
+    prof = profile_window(lambda: cli.train(run, train_ds, run.step + 3), stages,
+                          f"{name} (3 steps from step {run.step})", f"profile_train_{name}.txt")
+    shares = gather_shares(name, prof)
+    k1 = k1_on_a_late_step(lambda: cli.train(run, train_ds, run.step + 1), run)
+    train_times = torch.from_numpy(train_ds.timestamps).to(dev)
+    k3 = k3_on_update_inputs(lambda: cli.occ_update(run, False, train_times), dev)
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps({name: {
+        "card": card_line, "steps": TNERF_STEPS, "train_s": dt, "late_step_ms": late_ms,
+        "rays_per_s": TNERF_STEPS * MLP_RAYS / dt, "samples_per_s": total / dt,
+        "samples_per_ray": total / TNERF_STEPS / MLP_RAYS, "peak_bytes": peak, "loss_first": first,
+        "loss_last": last, "k1_per_step": k1_per_step, "launches": {"K1": launches["K1"], "K3": launches["K3"]},
+        "profile": shares,
+    }}), flush=True)
+    print(f"{name}: {TNERF_STEPS} steps in {dt:.3f} s ({dt / TNERF_STEPS * 1e3:.2f} ms a step with its updates), "
+          f"late step {late_ms:.2f} ms, {TNERF_STEPS * MLP_RAYS / dt:.1f} rays/s, {total / dt:.1f} kept samples/s, "
+          f"loss first {first:.6f} last {last:.6f}; K1 {launches['K1']} ({k1_per_step} a step), K3 {launches['K3']} "
+          f"({n_updates} updates)", flush=True)
+    print(f"phase {phase} took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k3=k3)
 
 
 def k1_render_inputs(dev, rng) -> tuple:
@@ -2897,7 +2903,333 @@ def train_encoders(dev, phase6_step_ms=None) -> dict:
     return dict(launches=launches, k1=details["k1"], soa=soa, skip_probes=skip_probes)
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+# Phase 16: examples/train_ngp_nerf_occ.py --field tensorf|kplanes at its
+# synthetic block (:45-58: aabb +-1.5, a res-128 grid, step 5e-3, 8192 rays
+# and 2^18 slots, near 0, weight decay 1e-6; Adam at eps 1e-15 on the
+# 20000-step schedule), each field at its defaults (TensoRF R 128 with 8 and
+# 24 components; K-Planes R 128 with 32 features, view-independent as the
+# example builds it), on the CLI's own procedural scene (no --data_root:
+# 36 train and 2 test views of 160x160, :104-117); up to PLUGIN_BUDGET_S of
+# train time each.  Phase 17: train_mlp_tnerf --field tineuvox (:85-91:
+# resolution 96, width 64) at phase 14's block and scene, TNERF_STEPS steps.
+# Phase 18: train_barf at its non-smoke widths (the 8 x 256 field, 24 views
+# of 160x160, a 64^3 grid, 1024 rays x 64 slots, pose noise 0.10), its
+# schedules over BARF_MAX_STEPS (the example's 6000 cut to about a minute
+# of train time on an H100).
+PLUGIN_FIELDS = ("tensorf", "kplanes")
+PLUGIN_SIZE, PLUGIN_TRAIN_VIEWS, PLUGIN_TEST_VIEWS = 160, 36, 2
+PLUGIN_MAX_STEPS, PLUGIN_BUDGET_S, PLUGIN_SEGMENT, PLUGIN_CPU_RAYS = 3000, 45.0, 250, 256
+# Card against CPU, the float32 gate: every gradient within 3e-4 of its
+# largest entry (phases 8 and 15c hold the NGP MLPs there), BARF's pose
+# deltas too (phase 18: 3.34e-05 of the largest entry measured on an H100).
+PLUGIN_GRAD_TOL = 3e-4
+BARF_MAX_STEPS, BARF_BUDGET_S, BARF_SEGMENT = 3000, 150.0, 250
+GATHER_STAGES = ("plane_gather_backward", "line_gather_backward", "voxel_gather_backward")
+
+
+def train_segments(label, train, run, max_steps, budget_s, segment, counted, probe=None) -> dict:
+    """``train(until)`` from ``run.step`` in segments of ``segment`` steps
+    while ``max_steps`` and ``budget_s`` seconds of train time allow one
+    more segment as long as the last: in each, the steps up to 16k, then 15
+    steps alone on the clock (a late step's ms), then one with its
+    occupancy update (the update's ms over a late step), then the rest.
+    Returns the losses and kept-sample counts (device
+    tensors), the train seconds, the late step's and the update's ms, the
+    launches of each wrapper in ``counted``, and each segment's mean loss,
+    kept samples a step, occupied share and ``probe()``'s dict, if given
+    (``curve``, also printed)."""
+    launches = dict.fromkeys(counted, 0)
+    losses, n_samps, train_s, late_ms, update_ms, seg_s, curve = [], [], 0.0, None, None, 0.0, []
+    while run.step < max_steps and train_s + seg_s <= budget_s:
+        seg_start, seg_step, seg_end = train_s, run.step, min(run.step + segment, max_steps)
+        w0 = (seg_end - 32) // 16 * 16 + 1
+        for part, until in enumerate((w0, w0 + 15, w0 + 16, seg_end)):
+            before = {k: w.launches for k, w in counted.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            seg_losses, seg_n = train(until)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            for k, w in counted.items():
+                launches[k] += w.launches - before[k]
+            train_s += dt
+            losses += seg_losses
+            n_samps += seg_n
+            if part == 1:
+                late_ms = dt / 15 * 1e3
+            elif part == 2:
+                update_ms = dt * 1e3 - late_ms
+        seg_s = train_s - seg_start
+        seg_n = n_samps[-(run.step - seg_step):]
+        extra = probe() if probe else {}
+        curve.append(dict(step=run.step, train_s=train_s, loss=float(torch.stack(losses[-len(seg_n):]).mean()),
+                          samples_per_step=float(torch.stack(seg_n).float().mean()),
+                          occupied=float(run.occ_state.binaries.float().mean()), **extra))
+        print(f"{label}: step={run.step} train_s={train_s:.3f} segment mean loss {curve[-1]['loss']:.6f}, "
+              f"{curve[-1]['samples_per_step']:.1f} kept samples a step, occupied cells "
+              f"{100 * curve[-1]['occupied']:.3f}%" + "".join(f", {k} {v:.6g}" for k, v in extra.items()), flush=True)
+    return dict(losses=losses, n_samps=n_samps, train_s=train_s, late_ms=late_ms, update_ms=update_ms,
+                launches=launches, curve=curve)
+
+
+def counted_kernels() -> dict:
+    """Every kernel wrapper, by its label, for the launch counts."""
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+
+    return {"K1": occupancy_query, "K2": tg.table_grad_u10, "K3": tg.cell_max, "K4-w3": tg.table_grad_w3,
+            "K4-w8": tg.table_grad_w8, "K5": tg.table_grad_sorted, "K6": tg.table_grad_pos}
+
+
+def check_launches(label, launches, n_steps, k1_per_step, n_k3) -> None:
+    """K1 ``k1_per_step`` times a step, K3 ``n_k3`` times, nothing else."""
+    want = dict.fromkeys(launches, 0)
+    want.update(K1=k1_per_step * n_steps, K3=n_k3)
+    if launches != want:
+        fail(f"{label}: launches {launches} over {n_steps} steps, expected {want}")
+
+
+def falling(label, losses) -> tuple:
+    """The first and last loss; fails unless every loss is finite and the
+    last 16 steps' mean is below the first 16 steps'."""
+    first, last = float(losses[0]), float(losses[-1])
+    if not all(math.isfinite(float(x)) for x in losses) or not (
+            float(torch.stack(losses[-16:]).mean()) < float(torch.stack(losses[:16]).mean())):
+        fail(f"{label}: losses not finite or not falling (first {first}, last {last})")
+    return first, last
+
+
+def gather_shares(label, prof) -> dict:
+    """The profile's device milliseconds in each gather's backward range,
+    in ``index_add_`` kernels (``indexFunc*``: every labelled gather's
+    backward, ``gather_ray_od``'s and the pose rows'), in the backward of
+    advanced indexing (``indexing_backward``: the scan's segment-start
+    gather) and in the forward row gathers (``indexSelect*``)."""
+    busy = prof["busy_ms"]
+    out = {name: prof["stages"].get(name, 0.0) for name in GATHER_STAGES}
+    for key, word in (("index_add_", "indexFunc"), ("indexing_backward", "indexing_backward"),
+                      ("index_select", "indexSelect")):
+        out[key] = sum(ms for name, (ms, _) in prof["kernels"].items() if word in name)
+    print(f"{label} profile: " + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in out.items())
+          + f" of {busy:.3f} ms device time", flush=True)
+    return dict(out, device_ms=busy)
+
+
+def k1_on_a_late_step(train_one, run) -> dict:
+    """:func:`k1_on_train_inputs` on one step that runs no occupancy update
+    (the CLIs update before every 16th step, which would give the step a
+    new grid): one more step first where the next would."""
+    if run.step % 16 == 0:
+        train_one()
+    return k1_on_train_inputs(train_one, run.occ_state)
+
+
+def step_card_vs_cpu(dev, label, step_fn, make_run, batch, loss_rtol, grad_tol, adam_eps, what) -> None:
+    """``step_fn(run, *batch)`` on the card (``dev``) and on the CPU, each
+    run from ``make_run(device)`` (the same weights and grid):
+    :func:`hold_step`.  The parameters are the run's field's and, where it
+    has one, its poser's."""
+    res = []
+    for device in (dev, torch.device("cpu")):
+        run = make_run(device)
+        modules = [run.field] + ([run.poser] if hasattr(run, "poser") else [])
+        t0 = time.perf_counter()
+        out = step_fn(run, *(t.to(device) for t in batch))
+        named = [(k, p) for m in modules for k, p in m.named_parameters()]
+        res.append(dict(
+            loss=float(out[0]), n=int(out[1]), s=time.perf_counter() - t0,
+            grads={k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu() for k, p in named},
+            params={k: p.detach().cpu() for k, p in named},
+        ))
+    hold_step(label, res[0], res[1], loss_rtol, grad_tol, what, adam_eps=adam_eps, held_tols=10.0)
+
+
+def train_plugin_field(dev, name, train_ds, test_ds, card_line) -> dict:
+    """Phase 16 for one field: the occupancy CLI's ``train`` at the
+    synthetic block (``PLUGIN_*``), launches counted, K1 and K3 on the
+    phase's own inputs, a profile of three late steps, the eval views, and
+    one step at 256 rays on the card against the CPU."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+    from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as cli
+
+    cfg = cli.build_config("lego")  # the synthetic block
+
+    def new_run(device, seed, cfg=cfg):
+        est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=1)
+        field = cli.make_field(cfg, est, field=name, device=device, generator=torch.Generator().manual_seed(seed))
+        return cli.Run(cfg=cfg, field=field, estimator=est, occ_state=est.init(device),
+                       opt=cli.make_optimizer(field, cfg["weight_decay"]), schedule=cli.lr_schedule(cfg["max_steps"]),
+                       generator=torch.Generator(device=device).manual_seed(seed))
+
+    t_field = time.perf_counter()
+    cli.train(new_run(dev, 1), train_ds, 2)  # warm-up: cuBLAS handles, the allocator
+    run = new_run(dev, 0)
+    n_params = sum(p.numel() for p in run.field.parameters())
+    _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], 0.0, cfg["near_plane"])
+    k1_per_step = 1 + int(use_skip)
+    torch.cuda.reset_peak_memory_stats()
+    # The mean magnitude of the field's first factor (TensoRF's dp0, the
+    # density plane over (x, y); K-Planes' sp0), each segment.
+    first = next(run.field.named_parameters())
+
+    def probe():
+        return {f"{first[0]}_abs_mean": float(first[1].detach().abs().mean())}
+
+    r = train_segments(name, lambda until: cli.train(run, train_ds, until), run, PLUGIN_MAX_STEPS, PLUGIN_BUDGET_S,
+                       PLUGIN_SEGMENT, counted_kernels(), probe)
+    n_steps, peak = run.step, torch.cuda.max_memory_allocated()
+    n_updates = (n_steps + cli.OCC_EVERY - 1) // cli.OCC_EVERY
+    check_launches(name, r["launches"], n_steps, k1_per_step, n_updates)
+    first, last = falling(name, r["losses"])
+    total = int(torch.stack(r["n_samps"]).sum())
+    stages = ("fetch", "traverse_and_compact", "field_forward", "rendering", "backward", "optimizer",
+              "occ_update") + GATHER_STAGES
+    prof = profile_window(lambda: cli.train(run, train_ds, run.step + 3), stages,
+                          f"{name} (3 steps from step {run.step})", f"profile_train_{name}.txt")
+    shares = gather_shares(name, prof)
+    k1 = k1_on_a_late_step(lambda: cli.train(run, train_ds, run.step + 1), run)
+    k3 = k3_on_update_inputs(lambda: cli.occ_update(run, warmup=False), dev)
+    metrics = cli.evaluate(run, test_ds, 8192)
+    p_final = float(np.mean([m["psnr"] for m in metrics]))
+    print(json.dumps({name: {
+        "card": card_line, "params": n_params, "steps": n_steps, "train_s": r["train_s"],
+        "late_step_ms": r["late_ms"], "update_ms": r["update_ms"], "samples_per_s": total / r["train_s"],
+        "samples_per_ray": total / n_steps / cfg["num_rays"], "occupied": float(run.occ_state.binaries.float().mean()),
+        "peak_bytes": peak, "loss_first": first, "loss_last": last, "eval_psnr": p_final,
+        "eval_ssim": float(np.mean([m["ssim"] for m in metrics])), "k1_per_step": k1_per_step,
+        "launches": {"K1": r["launches"]["K1"], "K3": r["launches"]["K3"]}, "profile": shares, "curve": r["curve"],
+    }}), flush=True)
+    print(f"{name}: {n_steps} steps in {r['train_s']:.3f} s, late step {r['late_ms']:.2f} ms, update "
+          f"{r['update_ms']:.2f} ms, {total / r['train_s']:.1f} kept samples/s, loss first {first:.6f} last "
+          f"{last:.6f}, eval PSNR {p_final:.4f} over {len(metrics)} views; K1 {r['launches']['K1']} "
+          f"({k1_per_step} a step), K3 {r['launches']['K3']} ({n_updates} updates); max_memory_allocated {peak} B",
+          flush=True)
+
+    # One step at 256 rays from the initial weights, card against CPU, with
+    # 256 x 64 slots, on the grid of the initial weights' warm-up update (a
+    # trained grid may hold no cell: TensoRF's density factors decay to 0
+    # under the CLI's Adam, and a uniform field's cells tie with the mean).
+    batch = train_ds[run.step]
+    sel = slice(0, PLUGIN_CPU_RAYS)
+    jitter = torch.from_numpy(np.random.default_rng(16).random(PLUGIN_CPU_RAYS, dtype=np.float32))
+    small = dict(cfg, target_sample_batch_size=PLUGIN_CPU_RAYS * 64)
+    warm = new_run(dev, 0)
+    cli.occ_update(warm, warmup=True)
+    weights = {k: v.detach().cpu().clone() for k, v in warm.field.state_dict().items()}
+
+    def make_run(device):
+        r = new_run(device, 0, small)
+        r.field.load_state_dict(weights)
+        r.occ_state = state_on(warm.occ_state, device)
+        return r
+
+    step_card_vs_cpu(dev, name, cli.train_step, make_run,
+                     (batch["rays"].origins[sel], batch["rays"].viewdirs[sel], batch["pixels"][sel],
+                      batch["color_bkgd"], jitter), MLP_LOSS_RTOL, PLUGIN_GRAD_TOL, 1e-15,
+                     f"{PLUGIN_CPU_RAYS} rays, full width")
+    print(f"phase 16 {name} took {time.perf_counter() - t_field:.1f} s", flush=True)
+    return dict(launches=r["launches"], k1=k1, k3=k3)
+
+
+def train_plugins(dev, card_line) -> dict:
+    """Phase 16: TensoRF and K-Planes trained through the occupancy CLI on
+    its procedural scene; returns each field's launches, K1 and K3."""
+    from nerfacc_tpu_torch.datasets.procedural import make_loaders
+
+    t_phase = time.perf_counter()
+    train_ds, test_ds = make_loaders(num_rays=8192, width=PLUGIN_SIZE, height=PLUGIN_SIZE,
+                                     n_train=PLUGIN_TRAIN_VIEWS, n_test=PLUGIN_TEST_VIEWS, device=dev)
+    out = {name: train_plugin_field(dev, name, train_ds, test_ds, card_line) for name in PLUGIN_FIELDS}
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+
+
+def train_barf_phase(dev, card_line) -> dict:
+    """Phase 18: ``train_barf`` at its non-smoke widths with its schedules
+    over ``BARF_MAX_STEPS`` steps (stopped at ``BARF_BUDGET_S`` of train
+    time): the initial and refined pose errors, the eval views' PSNR, K1's
+    launches held against its plain version on the phase's own inputs (no
+    K3: a 64^3 grid draws 2^18 cells at most), a profile with the shares of
+    ``gather_ray_od``'s backward and the scan's, and one step at 256 rays
+    on the card against the CPU, the pose gradient included."""
+    from nerfacc_tpu_torch.examples import train_barf as cli
+
+    t_phase = time.perf_counter()
+    cfg = cli.build_config(cli.parse_args(["--max_steps", str(BARF_MAX_STEPS)]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = cli.load_data(cfg, dev)
+    print(f"barf data: {cfg['n_train']} + 2 views of {cfg['width']}x{cfg['width']} on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    _, rot0, tr0 = cli.align_poses(data["noisy_c2w"], data["gt_c2w"])
+    cli.train(cli.make_run(cfg, data, dev, seed=1), data["train_rgba"], 2)  # warm-up
+    run = cli.make_run(cfg, data, dev)
+    _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], 0.0, cfg["near_plane"])
+    k1_per_step = 1 + int(use_skip)
+    torch.cuda.reset_peak_memory_stats()
+    r = train_segments("barf", lambda until: cli.train(run, data["train_rgba"], until), run, BARF_MAX_STEPS,
+                       BARF_BUDGET_S, BARF_SEGMENT, counted_kernels())
+    n_steps, peak = run.step, torch.cuda.max_memory_allocated()
+    launches = r["launches"]
+    check_launches("barf", launches, n_steps, k1_per_step, 0)
+    first, last = falling("barf", r["losses"])
+    total = int(torch.stack(r["n_samps"]).sum())
+    align, rot1, tr1 = cli.align_poses(cli.refined_poses(run), data["gt_c2w"])
+    stages = ("fetch", "pose_rays", "traverse_and_compact", "field_forward", "rendering", "backward", "optimizer",
+              "occ_update")
+    prof = profile_window(lambda: cli.train(run, data["train_rgba"], run.step + 3), stages,
+                          f"barf (3 steps from step {run.step})", "profile_train_barf.txt")
+    shares = gather_shares("barf", prof)
+    k1 = k1_on_a_late_step(lambda: cli.train(run, data["train_rgba"], run.step + 1), run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psnrs = cli.evaluate(run, data["test_images"], data["test_c2w"], align)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    print(json.dumps({"barf": {
+        "card": card_line, "max_steps": BARF_MAX_STEPS, "steps": n_steps, "train_s": r["train_s"],
+        "late_step_ms": r["late_ms"], "update_ms": r["update_ms"], "samples_per_s": total / r["train_s"],
+        "rays_per_s": n_steps * cfg["num_rays"] / r["train_s"], "peak_bytes": peak, "loss_first": first,
+        "loss_last": last, "rot_err_deg": {"initial": float(rot0.mean()), "refined": float(rot1.mean())},
+        "trans_err": {"initial": float(tr0.mean()), "refined": float(tr1.mean())}, "eval_psnr": psnrs,
+        "eval_rays_per_s": len(psnrs) * cfg["width"] ** 2 / eval_s, "k1_per_step": k1_per_step,
+        "launches": {"K1": launches["K1"], "K3": launches["K3"]}, "profile": shares, "curve": r["curve"],
+    }}), flush=True)
+    print(f"barf: {n_steps} of {BARF_MAX_STEPS} steps in {r['train_s']:.3f} s, late step {r['late_ms']:.2f} ms, "
+          f"update {r['update_ms']:.2f} ms; pose error rot {rot1.mean():.4f} deg (initial {rot0.mean():.4f}), trans "
+          f"{tr1.mean():.5f} (initial {tr0.mean():.5f}); eval PSNR {np.mean(psnrs):.4f}; loss first {first:.6f} "
+          f"last {last:.6f}; K1 {launches['K1']} ({k1_per_step} a step), K3 {launches['K3']}", flush=True)
+    if not rot1.mean() < rot0.mean():
+        fail(f"barf: the refined rotation error {rot1.mean():.4f} deg is not below the initial {rot0.mean():.4f}")
+
+    # One step at 256 rays from the initial weights and zero pose deltas on
+    # the trained grid, card against CPU, the pose gradient included.
+    rng = np.random.default_rng(18)
+    n = MLP_CPU_RAYS
+    cam_ids = torch.from_numpy(rng.integers(0, cfg["n_train"], n))
+    px, py = (torch.from_numpy(rng.integers(0, cfg["width"], n).astype(np.float32)) for _ in range(2))
+    rgba = data["train_rgba"].cpu()[cam_ids, py.long(), px.long()]
+    bkgd = torch.from_numpy(rng.random(3, dtype=np.float32))
+    pixels = rgba[:, :3] * rgba[:, 3:] + bkgd * (1 - rgba[:, 3:])
+    alpha = torch.tensor(cli.alpha_at(run.step, BARF_MAX_STEPS))
+    jitter = torch.from_numpy(rng.random(n, dtype=np.float32))
+    small = dict(cfg, sample_capacity=n * cfg["samples_per_ray"])
+    cpu_data = dict(data, train_rgba=None)
+
+    def make_run(device):
+        r = cli.make_run(small, cpu_data, device)
+        r.occ_state = state_on(run.occ_state, device)
+        return r
+
+    step_card_vs_cpu(dev, "BARF", cli.train_step, make_run, (cam_ids, px, py, pixels, bkgd, alpha, jitter),
+                     MLP_LOSS_RTOL, PLUGIN_GRAD_TOL, 1e-8, f"{n} rays, full width, pose deltas included")
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1)
+
+
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -3007,11 +3339,19 @@ def main(argv=None) -> None:
     if 13 in run:
         mlp = train_mlp(dev, card_line)
     if 14 in run:
-        train_tnerf(dev)
+        tn = train_dynamic(dev, card_line, "tnerf")
 
     # ---- 15. the other encoders, the SoA route, the macro-skip traversal ---
     if 15 in run:
         enc = train_encoders(dev, train_step_ms if 6 in run else None)
+
+    # ---- 16. TensoRF and K-Planes; 17. TiNeuVox; 18. BARF -----------------
+    if 16 in run:
+        plug = train_plugins(dev, card_line)
+    if 17 in run:
+        tnv = train_dynamic(dev, card_line, "tineuvox")
+    if 18 in run:
+        barf = train_barf_phase(dev, card_line)
 
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
@@ -3090,6 +3430,21 @@ def main(argv=None) -> None:
                        enc["soa"]["k3"]["err"], enc["soa"]["k3"]["ms"], enc["soa"]["k3"]["plain_ms"],
                        enc["soa"]["k3"]["bytes"], enc["soa"]["k3"]["ops"], enc["soa"]["k3"]["library_ms"]),
         ]
+        # K1 and K3 on the T-NeRF path (phase 14) and the plug-in fields'
+        # paths (phases 16 and 17: one late step's lattice queries, one
+        # update's draws), and K1 on BARF's (18).
+        paths = [("tnerf", tn)] + [(name, plug[name]) for name in PLUGIN_FIELDS] + [("tineuvox", tnv),
+                                                                                    ("barf", barf)]
+        for name, p in paths:
+            lat = p["k1"]["lattice"]
+            kernels.append(kernel_row(f"occupancy_query_{name}", src + "occ_query.cu",
+                                      "nerfacc_tpu/ops/occ_query.py:121", p["launches"]["K1"], p["k1"]["err"],
+                                      lat["ms"], lat["plain_ms"], lat["bytes"], lat["ops"], None))
+            if "k3" in p:
+                k3 = p["k3"]
+                kernels.append(kernel_row(f"cell_max_{name}", src + "cell_max.cu", tg_py + "1918",
+                                          p["launches"]["K3"], k3["err"], k3["ms"], k3["plain_ms"], k3["bytes"],
+                                          k3["ops"], k3["library_ms"]))
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -6,7 +6,7 @@ imports JAX.
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,31 +16,41 @@ from .estimators.occ_grid import OccGridEstimator, OccGridState
 
 
 def field_from_jax(params: Mapping) -> dict:
-    """``state_dict`` for :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`
-    or :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField` from the flax
-    parameters of the JAX package's class of the same name, with or without
-    the outer ``{"params": ...}`` level.  Every encoder's table is one
-    parameter laid out as the JAX encoder's: ``hash`` ``(L * T, F)``,
-    ``soa`` ``(F, L * T)``, ``fused`` and ``folded`` ``(L * T, 8 F)``,
-    ``grouped`` ``(G * T, 128)``; a density field has ``mlp_base`` only, and
-    the folded encoder's first layer takes its ``L * 8 * F`` features.
+    """``state_dict`` for a field of ``models/ngp.py``
+    (:class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
+    :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField`),
+    ``models/tensorf.py`` (TensoRF, K-Planes) or ``models/tineuvox.py``
+    (TiNeuVox) from the flax parameters of the JAX package's class of the
+    same name, with or without the outer ``{"params": ...}`` level.
 
-    flax ``Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights are their
-    transpose.  flax names the dense layers of ``nn.Sequential`` by their
-    position (``layers_0``, ``layers_2``, ...), which is also their index in
-    the port's ``nn.Sequential``.
+    Arrays keep their flax path (``encoder.table``, ``dp0``, ``sp2``,
+    ``voxels.grid``); every encoder's table is one parameter laid out as the
+    JAX encoder's: ``hash`` ``(L * T, F)``, ``soa`` ``(F, L * T)``,
+    ``fused`` and ``folded`` ``(L * T, 8 F)``, ``grouped`` ``(G * T,
+    128)``.  A flax ``Dense`` (``basis_mat``, ``sigma_head``) becomes the
+    ``nn.Linear`` of the same name: flax kernels are ``(in, out)``,
+    ``nn.Linear`` weights their transpose; the bias, if any, as it is.  flax
+    names the dense layers of ``nn.Sequential`` ``layers_<i>`` by position,
+    which is also their index in the port's ``nn.Sequential``.
     """
-    p = params.get("params", params)
+    state = {}
 
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    state = {"encoder.table": tensor(p["encoder"]["table"])}
-    for mlp in ("mlp_base", "mlp_head"):
-        for name, layer in p.get(mlp, {}).items():
-            i = int(name.split("_")[-1])
-            state[f"{mlp}.{i}.weight"] = tensor(np.asarray(layer["kernel"]).T)
-            state[f"{mlp}.{i}.bias"] = tensor(layer["bias"])
+    def walk(tree: Mapping, path: tuple) -> None:
+        for name, sub in tree.items():
+            if not isinstance(sub, Mapping):
+                state[".".join(path + (name,))] = tensor(sub)
+            elif "kernel" not in sub:
+                walk(sub, path + (name,))
+            else:
+                prefix = ".".join(path + (name.split("_")[1] if name.startswith("layers_") else name,))
+                state[f"{prefix}.weight"] = tensor(np.asarray(sub["kernel"]).T)
+                if "bias" in sub:
+                    state[f"{prefix}.bias"] = tensor(sub["bias"])
+
+    walk(params.get("params", params), ())
     return state
 
 
@@ -72,6 +82,18 @@ def mlp_field_from_jax(params: Mapping) -> dict:
 
     walk(params.get("params", params), ())
     return state
+
+
+def barf_from_jax(params: Mapping) -> Tuple[dict, dict]:
+    """``(field, pose)`` ``state_dict``s for
+    :class:`~nerfacc_tpu_torch.models.barf.BARFRadianceField` and
+    :class:`~nerfacc_tpu_torch.models.barf.PoseRefine` from the BARF
+    example's ``{"field": ..., "pose": {"params": {"pose_deltas"}}}``."""
+    pose = params["pose"].get("params", params["pose"])
+    return (
+        mlp_field_from_jax(params["field"]),
+        {"pose_deltas": torch.from_numpy(np.array(pose["pose_deltas"], dtype=np.float32))},
+    )
 
 
 def occ_state_from_jax(

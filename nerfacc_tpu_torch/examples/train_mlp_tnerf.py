@@ -3,14 +3,14 @@
 Port of ``examples/train_mlp_tnerf.py``: the dynamic procedural scene (the
 default when no ``--data_root`` is given) or a D-NeRF scene (aabb +-1.5, a
 res-128 single-level grid, step 5e-3), ``--field tnerf`` (a 4 x 64 warp in
-front of the 8 x 256 vanilla field) or ``ndr`` (three invertible warp
-blocks), 48 sample slots a ray, Adam at 5e-4, Huber loss, and an occupancy
+front of the 8 x 256 vanilla field), ``ndr`` (three invertible warp
+blocks) or ``tineuvox`` (a deformation net in front of a res-96 voxel grid,
+32 with ``--smoke``), 48 sample slots a ray, Adam at 5e-4, Huber loss, and an occupancy
 update every 16 steps whose probes each take a random training timestamp.
 
     python -m nerfacc_tpu_torch.examples.train_mlp_tnerf --smoke --device cpu
-    python -m nerfacc_tpu_torch.examples.train_mlp_tnerf --field ndr   # on the card
+    python -m nerfacc_tpu_torch.examples.train_mlp_tnerf --field tineuvox   # on the card
 
-``--field tineuvox`` is not ported yet (ROADMAP Queue 1 item 8) and raises.
 :func:`train_step`, :func:`occ_update`, :func:`eval_render` and
 :func:`train` are the loop's own pieces, which other programs call.
 """
@@ -29,10 +29,10 @@ from ..datasets.procedural import make_dynamic_loaders
 from ..device import resolve_device
 from ..estimators.occ_grid import OccGridEstimator
 from ..models.mlp import NDRTNeRFRadianceField, TNeRFRadianceField
+from ..models.tineuvox import TiNeuVoxRadianceField
 from ..rendering import gather_ray_od, occgrid_render_rays
 from .common import Timer, eval_metrics, render_image_chunked
 from .train_mlp_nerf import LR, OCC_EVERY, WARMUP_STEPS, Run
-from .train_ngp_nerf_occ import refuse_unported
 
 Tensor = torch.Tensor
 
@@ -40,7 +40,17 @@ DNERF_SCENES = [
     "bouncingballs", "hellwarrior", "hook", "jumpingjacks", "lego", "mutant", "standup", "trex",
 ]
 SAMPLES_PER_RAY = 48
-FIELDS = {"tnerf": TNeRFRadianceField, "ndr": NDRTNeRFRadianceField}
+FIELDS = ("tnerf", "ndr", "tineuvox")
+
+
+def make_field(name: str, cfg: dict, smoke: bool, *, device, generator: Optional[torch.Generator] = None):
+    """The example's dynamic field (``train_mlp_tnerf.py:85-96``): TiNeuVox
+    on the configuration's box at resolution 96 (32 with ``--smoke``)."""
+    if name == "tineuvox":
+        return TiNeuVoxRadianceField(aabb=tuple(float(v) for v in cfg["aabb"]), resolution=32 if smoke else 96,
+                                     device=device, generator=generator)
+    cls = {"tnerf": TNeRFRadianceField, "ndr": NDRTNeRFRadianceField}[name]
+    return cls(device=device, generator=generator)
 
 
 def make_fns(field: torch.nn.Module, rays_o: Tensor, rays_d: Tensor, timestamps: Tensor):
@@ -173,15 +183,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--num_rays", type=int, default=1024)
     p.add_argument("--smoke", action="store_true")
-    p.add_argument("--field", type=str, default="tnerf", choices=["tnerf", "ndr", "tineuvox"],
-                   help="dynamic field family; tineuvox is not ported yet")
+    p.add_argument("--field", type=str, default="tnerf", choices=FIELDS,
+                   help="dynamic field family (tineuvox: the reference's benchmark plug-in)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
 def setup(args: argparse.Namespace):
     """``(run, train_ds, test_ds, eval_chunk)`` for the parsed arguments."""
-    refuse_unported(field=args.field)
     device = resolve_device(args.device)
     procedural = args.smoke or args.data_root is None or args.scene == "procedural"
     num_rays = min(args.num_rays, 256) if procedural and args.smoke else args.num_rays
@@ -201,7 +210,7 @@ def setup(args: argparse.Namespace):
                    grid_resolution=128, render_step_size=5e-3, near_plane=0.0, far_plane=1e10)
     cfg.update(max_steps=args.max_steps or cfg["max_steps"], sample_capacity=num_rays * SAMPLES_PER_RAY)
     estimator = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=1)
-    field = FIELDS[args.field](device=device, generator=torch.Generator().manual_seed(42))
+    field = make_field(args.field, cfg, args.smoke, device=device, generator=torch.Generator().manual_seed(42))
     run = Run(
         cfg=cfg, field=field, estimator=estimator, occ_state=estimator.init(device),
         opt=torch.optim.Adam(field.parameters(), lr=LR), generator=torch.Generator(device=device).manual_seed(42),

@@ -2,13 +2,14 @@
 
 Port of ``examples/train_ngp_nerf_occ.py``: the per-scene configuration
 (NeRF-Synthetic, Mip-NeRF 360 unbounded, and the procedural scene when no
-``--data_root`` is given), Adam (eps 1e-15, coupled weight decay) with the
+``--data_root`` is given), the NGP field or ``--field tensorf|kplanes``, Adam (eps 1e-15, coupled weight decay) with the
 JAX example's warm-up and step schedule, Huber loss, the occupancy update
 every 16 steps, the macro-budget escalation, eval with PSNR, SSIM, MS-SSIM
 and LPIPS, and checkpoints.
 
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --smoke --device cpu
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --dtype bf16   # on the card
+    python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field tensorf
 
 As in the JAX example, the ray count is fixed and the sample capacity is a
 fixed budget (``target_sample_batch_size``).  :func:`train_step` and
@@ -30,6 +31,7 @@ from ..datasets.procedural import make_loaders
 from ..device import resolve_device
 from ..estimators.occ_grid import OccGridEstimator, OccGridState
 from ..models.ngp import NGPRadianceField
+from ..models.tensorf import KPlanesRadianceField, TensoRFRadianceField
 from ..rendering import gather_ray_od, occgrid_render_rays
 from ..utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .common import (
@@ -42,27 +44,10 @@ from .common import (
 
 Tensor = torch.Tensor
 
-# The JAX example's choices that the port does not have yet, with the
-# ROADMAP item (Queue 1) that ports them.
-NOT_PORTED = {
-    "tensorf": "ROADMAP Queue 1 item 8",
-    "kplanes": "ROADMAP Queue 1 item 8",
-    "tineuvox": "ROADMAP Queue 1 item 8",
-}
-
 OCC_EVERY = 16  # steps between occupancy updates
 WARMUP_STEPS = 256  # updates before this step probe every cell
 MACRO_START, MACRO_CAP = 24, 64  # the macro budget and its escalation cap
 TRUNC_LIMIT = 1e-3  # share of truncated rays that doubles the budget
-
-
-def refuse_unported(**choices: str) -> None:
-    """Raise for a JAX option value that the port has not ported."""
-    for flag, value in choices.items():
-        if value in NOT_PORTED:
-            raise NotImplementedError(
-                f"--{flag} {value} is not ported to nerfacc_tpu_torch yet ({NOT_PORTED[value]})"
-            )
 
 
 def build_config(scene: str) -> dict:
@@ -144,7 +129,7 @@ class Run:
     """What the loop carries from step to step."""
 
     cfg: dict
-    field: NGPRadianceField
+    field: torch.nn.Module  # NGPRadianceField, TensoRFRadianceField or KPlanesRadianceField
     estimator: OccGridEstimator
     occ_state: OccGridState
     opt: torch.optim.Optimizer
@@ -165,7 +150,7 @@ class Run:
         )
 
 
-def make_fns(field: NGPRadianceField, rays_o: Tensor, rays_d: Tensor):
+def make_fns(field: torch.nn.Module, rays_o: Tensor, rays_d: Tensor):
     """The example's ``sigma_fn`` and ``rgb_sigma_fn`` on flat samples."""
 
     def sigma_fn(t_starts, t_ends, ray_indices):
@@ -332,15 +317,22 @@ def resume(run: Run, model_path: str) -> None:
 
 def make_field(cfg: dict, estimator: OccGridEstimator, encoder: str = "fused", field: str = "ngp",
                levels: Optional[int] = None, feats: Optional[int] = None, log2t: Optional[int] = None,
-               dtype: str = "f32", *, device, generator: Optional[torch.Generator] = None) -> NGPRadianceField:
-    """The example's radiance field (``train_ngp_nerf_occ.py:162-175``): the
-    fused and folded encoders at L8 x F16 with 2^18 entries by default, the
-    others (``hash``, ``soa``, the grouped tcnn shape) at L16 x F2 with
-    2^19."""
-    refuse_unported(encoder=encoder, field=field)
+               dtype: str = "f32", *, device, generator: Optional[torch.Generator] = None) -> torch.nn.Module:
+    """The example's radiance field (``train_ngp_nerf_occ.py:162-185``) on
+    the estimator's last-level box: for ``ngp`` the fused and folded
+    encoders at L8 x F16 with 2^18 entries by default, the others
+    (``hash``, ``soa``, the grouped tcnn shape) at L16 x F2 with 2^19;
+    ``tensorf`` and ``kplanes`` at their defaults.  The example calls every
+    field as ``(x, d)``, which puts ``d`` in K-Planes' ``t``: its colour is
+    view-independent, from an MLP of 32 inputs (``use_viewdirs=False``)."""
+    aabb = tuple(float(v) for v in estimator._aabbs_np[-1])
+    if field == "tensorf":
+        return TensoRFRadianceField(aabb=aabb, device=device, generator=generator)
+    if field == "kplanes":
+        return KPlanesRadianceField(aabb=aabb, use_viewdirs=False, device=device, generator=generator)
     fused = encoder in ("fused", "folded")
     return NGPRadianceField(
-        aabb=tuple(float(v) for v in estimator._aabbs_np[-1]),
+        aabb=aabb,
         unbounded=cfg["unbounded"],
         encoder_type=encoder,
         n_levels=levels or (8 if fused else 16),
@@ -368,7 +360,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--encoder", type=str, default="fused", choices=["hash", "soa", "fused", "folded", "grouped"],
                    help="'hash' and 'soa' = tcnn's parametrisation; 'grouped' = its 16L x 2F shape in 128-wide rows")
     p.add_argument("--field", type=str, default="ngp", choices=["ngp", "tensorf", "kplanes"],
-                   help="radiance field family; tensorf and kplanes are not ported yet")
+                   help="radiance field family (tensorf and kplanes: the reference's benchmark plug-ins)")
     p.add_argument("--levels", type=int, default=None, help="hash-grid levels (default 8 fused/folded, else 16)")
     p.add_argument("--feats", type=int, default=None)
     p.add_argument("--log2t", type=int, default=None)
@@ -380,7 +372,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def setup(args: argparse.Namespace):
     """``(run, train_ds, test_ds, eval_chunk)`` for the parsed arguments."""
-    refuse_unported(encoder=args.encoder, field=args.field)
     device = resolve_device(args.device)
     cfg = build_config(args.scene)
     procedural = args.smoke or args.data_root is None or args.scene == "procedural"

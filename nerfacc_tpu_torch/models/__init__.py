@@ -9,6 +9,8 @@ from .hash_soa import (
 )
 from .mlp import MLP, NDRTNeRFRadianceField, NerfMLP, SinusoidalEncoder, TNeRFRadianceField, VanillaNeRFRadianceField
 from .ngp import NGPDensityField, NGPRadianceField, contract_tanh, contract_tanh_inv, contract_to_unisphere, trunc_exp
+from .tensorf import KPlanesRadianceField, TensoRFRadianceField
+from .tineuvox import TiNeuVoxRadianceField
 
 __all__ = [
     "HashGridEncoder",
@@ -16,6 +18,7 @@ __all__ = [
     "HashGridEncoderFused",
     "HashGridEncoderGrouped",
     "HashGridEncoderSoA",
+    "KPlanesRadianceField",
     "MLP",
     "NDRTNeRFRadianceField",
     "NGPDensityField",
@@ -23,6 +26,8 @@ __all__ = [
     "NerfMLP",
     "SinusoidalEncoder",
     "TNeRFRadianceField",
+    "TensoRFRadianceField",
+    "TiNeuVoxRadianceField",
     "VanillaNeRFRadianceField",
     "contract_tanh",
     "contract_tanh_inv",

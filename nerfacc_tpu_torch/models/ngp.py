@@ -109,9 +109,9 @@ def contract_to_unisphere(x: Tensor, aabb: Tensor, eps: float = 1e-6) -> Tensor:
 
 
 def _lecun_linear(
-    fan_in: int, fan_out: int, generator: Optional[torch.Generator]
+    fan_in: int, fan_out: int, generator: Optional[torch.Generator], bias: bool = True
 ) -> nn.Linear:
-    layer = nn.Linear(fan_in, fan_out, device="cpu")
+    layer = nn.Linear(fan_in, fan_out, bias=bias, device="cpu")
     # flax variance_scaling(1, "fan_in", "truncated_normal"): the std of a
     # unit normal truncated to [-2, 2] is 0.87962566103423978.
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -119,7 +119,8 @@ def _lecun_linear(
         nn.init.trunc_normal_(
             layer.weight, std=std, a=-2 * std, b=2 * std, generator=generator
         )
-        layer.bias.zero_()
+        if bias:
+            layer.bias.zero_()
     return layer
 
 

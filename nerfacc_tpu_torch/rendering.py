@@ -58,8 +58,11 @@ def gather_ray_od(
     rays_o: Tensor, rays_d: Tensor, ray_indices: Tensor
 ) -> Tuple[Tensor, Tensor]:
     """Per-sample ``(origins, directions)`` through one ``(n, 6)`` row
-    gather."""
-    g = torch.cat([rays_o, rays_d], dim=-1)[ray_indices.long()]
+    gather.  It is ``index_select``, whose backward (when the rays need a
+    gradient, as BARF's do) is one ``index_add_``: the padding slots all
+    name one ray, and the backward of advanced indexing adds the duplicates
+    of one index one after another."""
+    g = torch.index_select(torch.cat([rays_o, rays_d], dim=-1), 0, ray_indices.long())
     return g[:, :3], g[:, 3:]
 
 

@@ -20,9 +20,8 @@
   the ~1e-5 the occupancies differ by flips about 200 of 32768 cells, all
   within 5e-6 of the threshold, and the traversals then differ by those
   cells: up to 8.2e-3 after step 16.
-- Options the port does not have yet raise; ``--encoder hash|soa|folded``
-  builds the JAX examples' fields; the default device raises without a
-  card.
+- ``--encoder hash|soa|folded`` builds the JAX examples' fields; the
+  default device raises without a card.
 """
 
 import jax
@@ -280,15 +279,6 @@ def test_train_loop_matches_the_jax_example_over_32_steps(monkeypatch):
     # 1e-2 dB (2.9e-3 measured).
     assert psnr_t == pytest.approx(psnr_j, abs=1e-2)
     assert psnr_t > 14.0
-
-
-@pytest.mark.parametrize("flag,value,item", [
-    ("field", "tensorf", "item 8"), ("field", "kplanes", "item 8"),
-])
-def test_unported_choices_raise_with_their_roadmap_item(flag, value, item):
-    args = occ_cli.parse_args(["--smoke", "--device", "cpu", f"--{flag}", value])
-    with pytest.raises(NotImplementedError, match=item):
-        occ_cli.setup(args)
 
 
 def _n_params(tree) -> int:

@@ -4,7 +4,9 @@ K1, K2, K3, K4 (w3 and w8, float32 and bf16), K5 and K6, the wrappers'
 refusals, the visibility filter (the volrend functions and the
 training renderer) and the proposal-network step (its t ladder, and one
 step through K4-w3 and through K2) against the CPU, the procedural views
-and the occupancy CLI's checkpoint round trip on the card.  Needs an NVIDIA
+and the occupancy CLI's checkpoint round trip on the card, and the plug-in
+fields' and BARF's steps (K1 and K3 launched as their paths say, each step
+against the CPU; BARF's rays and ``se3_exp`` on the card and the CPU).  Needs an NVIDIA
 GPU and the CUDA toolkit, and not JAX (``tests/conftest.py``
 imports JAX, hence ``--noconftest``)::
 
@@ -1198,3 +1200,178 @@ def test_hash_encoder_index_add_backward_matches_the_cpu(cuda):
     torch.testing.assert_close(oa, ob, rtol=1e-6, atol=1e-10)
     torch.testing.assert_close(ga, gb, rtol=0, atol=1e-5 * float(gb.abs().max()))
     assert float(gb.abs().max()) > 0
+
+
+def _plugin_step_on_both(cuda, make_field, run_for, update, step_fn, inputs):
+    """``step_fn(run, *inputs)`` on the card and on the CPU from the same
+    weights, the CPU on the card's grid: two ``update(run, warmup, draws)``
+    on the card, warm-up and post-warm-up, each with its draws.  Returns the
+    card's K1 and K3 launches, and each device's loss, kept count and
+    gradients."""
+    from nerfacc_tpu_torch.ops.table_grad import cell_max
+
+    results, state, weights, launches = [], None, None, None
+    for device in (cuda, torch.device("cpu")):
+        field = make_field(device)
+        if weights is None:
+            weights = {k: v.detach().cpu().clone() for k, v in field.state_dict().items()}
+        field.load_state_dict(weights)
+        run = run_for(field, device)
+        if device.type == "cuda":
+            occupancy_query.launches = cell_max.launches = 0
+            for s, warmup in ((0, True), (1, False)):
+                update(run, warmup, run.estimator.make_draws(s, torch.Generator().manual_seed(s), warmup_steps=1,
+                                                             device=device))
+            state = run.occ_state
+        else:
+            run.occ_state = state.replace(**{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)})
+        out = step_fn(run, *(a.to(device) if isinstance(a, torch.Tensor) else a for a in inputs))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            launches = (occupancy_query.launches, cell_max.launches)
+        results.append((float(out[0]), int(out[1]), {k: p.grad.detach().cpu() for k, p in field.named_parameters()
+                                                      if p.grad is not None}))
+    return launches, results
+
+
+def _hold(results, grad_tol=3e-4):
+    (loss_c, n_c, g_c), (loss_h, n_h, g_h) = results
+    assert n_c == n_h > 0
+    assert loss_c == pytest.approx(loss_h, rel=1e-5)
+    assert set(g_c) == set(g_h)
+    for k in g_h:
+        scale = float(g_h[k].abs().max())
+        assert float((g_c[k] - g_h[k]).abs().max()) <= grad_tol * scale, k
+
+
+def _rays(n, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.from_numpy(-3.0 * d), torch.from_numpy(d), torch.from_numpy(rng.random((n, 3), dtype=np.float32)),
+            torch.from_numpy(rng.random(n, dtype=np.float32)), torch.from_numpy(rng.random((n, 1), dtype=np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tensorf", "kplanes"])
+def test_plugin_field_step_launches_k1_and_its_update_k3(cuda, name):
+    """train_ngp_nerf_occ --field tensorf|kplanes at the CLI's synthetic
+    block (a 128^3 grid over +-1.5): each update's 2^21 and 2^20 draws go
+    through K3 once, the step's traversal through K1; the step agrees with
+    the CPU (loss rtol 1e-5, gradients 3e-4 of their largest entry)."""
+    from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as cli
+
+    cfg = dict(cli.build_config("lego"), target_sample_batch_size=256 * 64)
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=1)
+
+    def make_field(device):
+        return cli.make_field(cfg, est, field=name, device=device, generator=torch.Generator().manual_seed(0))
+
+    def run_for(field, device):
+        return cli.Run(cfg=cfg, field=field, estimator=est, occ_state=est.init(device),
+                       opt=cli.make_optimizer(field, cfg["weight_decay"]), schedule=cli.lr_schedule(20000),
+                       generator=torch.Generator())
+
+    o, d, pixels, jitter, _ = _rays(256, 0)
+    launches, results = _plugin_step_on_both(
+        cuda, make_field, run_for, lambda run, warmup, draws: cli.occ_update(run, warmup, draws), cli.train_step,
+        (o, d, pixels, torch.ones(3), jitter))
+    assert launches[1] == 2 and launches[0] >= 1
+    _hold(results)
+
+
+@pytest.mark.cuda
+def test_tineuvox_step_launches_k1_and_its_update_k3(cuda):
+    """train_mlp_tnerf --field tineuvox at the D-NeRF block (a 128^3 grid):
+    K3 once an update, K1 in the step; the step agrees with the CPU."""
+    from nerfacc_tpu_torch.examples import train_mlp_nerf as mlp_cli
+    from nerfacc_tpu_torch.examples import train_mlp_tnerf as cli
+
+    cfg = dict(mlp_cli.build_config(procedural=False, smoke=False), sample_capacity=256 * 48)
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=1)
+
+    def make_field(device):
+        return cli.make_field("tineuvox", cfg, smoke=True, device=device, generator=torch.Generator().manual_seed(0))
+
+    def run_for(field, device):
+        return mlp_cli.Run(cfg=cfg, field=field, estimator=est, occ_state=est.init(device),
+                           opt=torch.optim.Adam(field.parameters(), lr=mlp_cli.LR), generator=torch.Generator())
+
+    o, d, pixels, jitter, times = _rays(256, 1)
+
+    def update(run, warmup, draws):
+        probe_times = torch.full((draws[0]["jitter"].shape[0], 1), 0.5, device=cuda)
+        cli.occ_update(run, warmup, torch.tensor([0.5], device=cuda), draws, probe_times)
+
+    launches, results = _plugin_step_on_both(cuda, make_field, run_for, update, cli.train_step,
+                                             (o, d, times, pixels, torch.ones(3), jitter))
+    assert launches[1] == 2 and launches[0] >= 1
+    _hold(results)
+
+
+@pytest.mark.cuda
+def test_barf_rays_and_se3_are_the_same_on_the_card_and_the_cpu(cuda):
+    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
+    from nerfacc_tpu_torch.examples import train_barf as cli
+    from nerfacc_tpu_torch.models.barf import rays_from_pixels, se3_exp
+
+    rng = np.random.default_rng(2)
+    c2w = np.stack([pose_spherical(t, -0.6, 2.5)[:3] for t in rng.uniform(0, 6.3, 4096)]).astype(np.float32)
+    c2w = torch.from_numpy(cli.apply_deltas(rng.normal(0, 0.1, (4096, 6)).astype(np.float32), c2w))
+    x, y = (torch.from_numpy(rng.integers(0, 160, 4096).astype(np.float32)) for _ in range(2))
+    K = torch.tensor([[144.0, 0, 80], [0, 144.0, 80], [0, 0, 1]])
+    on_card = rays_from_pixels(x.to(cuda), y.to(cuda), K.to(cuda), c2w.to(cuda))
+    on_cpu = rays_from_pixels(x, y, K, c2w)
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+    xi = torch.from_numpy(rng.normal(0, 0.1, (64, 6)).astype(np.float32))
+    torch.testing.assert_close(se3_exp(xi.to(cuda)).cpu(), se3_exp(xi), rtol=0, atol=2e-7)
+
+
+@pytest.mark.cuda
+def test_barf_step_launches_k1_and_matches_the_cpu(cuda):
+    """One train_barf step at a small width on a 64^3 grid (its update takes
+    the scatter max: 2^18 draws are under K3's 2^19), on the card and the
+    CPU: the loss, and the field's and the poses' gradients (the rays'
+    gradient through gather_ray_od's index_add_) within 3e-4 of their
+    largest entry."""
+    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
+    from nerfacc_tpu_torch.examples import train_barf as cli
+    from nerfacc_tpu_torch.models.barf import BARFRadianceField, PoseRefine
+    from nerfacc_tpu_torch.ops.table_grad import cell_max
+
+    rng = np.random.default_rng(3)
+    n, n_cams = 256, 6
+    gt = np.stack([pose_spherical(t, -0.6, 2.5)[:3] for t in np.linspace(0, 6, n_cams)]).astype(np.float32)
+    nominal = torch.from_numpy(cli.noisy_poses(gt, 0.1))
+    K = torch.tensor([[144.0, 0, 80], [0, 144.0, 80], [0, 0, 1]])
+    cfg = dict(max_steps=100, num_rays=n, samples_per_ray=64, sample_capacity=n * 64, render_step_size=5e-3,
+               near_plane=1.3, far_plane=3.7, aabb=np.array([-1, -1, -1, 1, 1, 1], np.float32))
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=64, levels=1)
+    batch = (torch.from_numpy(rng.integers(0, n_cams, n)), torch.from_numpy(rng.integers(0, 160, n).astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 160, n).astype(np.float32)),
+             torch.from_numpy(rng.random((n, 3), dtype=np.float32)), torch.from_numpy(rng.random(3, dtype=np.float32)))
+    alpha, jitter = torch.tensor(0.4), torch.from_numpy(rng.random(n, dtype=np.float32))
+    results, state = [], None
+    for device in (cuda, torch.device("cpu")):
+        field = BARFRadianceField(net_depth=2, net_width=64, device=device, generator=torch.Generator().manual_seed(0))
+        poser = PoseRefine(n_cams, device=device)
+        run = cli.Run(cfg=cfg, field=field, poser=poser, estimator=est, occ_state=est.init(device),
+                      opt=cli.make_optimizer(field, poser), nominal=nominal.to(device), K=K.to(device),
+                      generator=torch.Generator(), pixel_rng=np.random.default_rng(1))
+        if device.type == "cuda":
+            occupancy_query.launches = cell_max.launches = 0
+            cli.occ_update(run, alpha.to(device), warmup=True,
+                           draws=est.make_draws(0, torch.Generator().manual_seed(0), warmup_steps=1, device=device))
+            state = run.occ_state
+        else:
+            run.occ_state = state.replace(**{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)})
+        loss, n_samp = cli.train_step(run, *(t.to(device) for t in batch), alpha.to(device), jitter.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert cell_max.launches == 0 and occupancy_query.launches >= 1
+        grads = {k: p.grad.detach().cpu() for k, p in field.named_parameters()}
+        grads["pose_deltas"] = poser.pose_deltas.grad.detach().cpu()
+        results.append((float(loss), int(n_samp), grads))
+    assert float(results[1][2]["pose_deltas"].abs().max()) > 0
+    _hold(results)

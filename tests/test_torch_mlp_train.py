@@ -336,7 +336,3 @@ def test_default_device_raises_without_a_card(cli, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--smoke"])
 
-
-def test_tineuvox_raises_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnerf_cli.setup(tnerf_cli.parse_args(["--smoke", "--device", "cpu", "--field", "tineuvox"]))
