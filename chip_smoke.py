@@ -7,7 +7,7 @@
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
-18 none):
+20 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -93,7 +93,7 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    through the occupancy CLI's own ``train_step`` and ``train``: the
    textured procedural scene generated on the card at 800x800 (timed; a
    32x32 crop of a training view within one uint8 step of the CPU), up to
-   3000 steps or 120 s of train time with an eval PSNR of the test view
+   2000 steps or 120 s of train time with an eval PSNR of the test view
    every 250 steps (outside the clock); train seconds and steps to 33 dB
    (or null), the final PSNR, SSIM, MS-SSIM and LPIPS (``rnd`` without a
    weights file), kept samples/s, a late step's ms, samples per ray and the
@@ -101,14 +101,16 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    traversal queries it and K2 once a step, each held against its plain
    version on a late step's own inputs; the final PSNR at least 30 dB; the
    test view served through the render CLI (rays/s on the trained grid), and
-   a checkpoint saved, restored and rendered again, within 1e-6.  Needs no
+   a checkpoint saved, restored and rendered again, within 1e-6; then a
+   late step's ms with the loader's batches from the native sampler and
+   from the numpy path, in turns (32 steps each).  Needs no
    other phase (it prints phase 6's step and phase 3's rays/s beside its
    own when those ran).
 13. the vanilla NeRF, trained: ``train_mlp_nerf``'s own ``train``,
    ``train_step``, ``occ_update`` and ``eval_render`` at the CLI's
    NeRF-Synthetic block (``MLP_*``: aabb +-1.5, res-128 grid, step 5e-3,
    1024 rays x 64 slots, the 8 x 256 field) on phase 12's textured scene at
-   800x800, up to 3000 steps or 60 s of train time, an eval of the test view
+   800x800, up to 3000 steps or 45 s of train time, an eval of the test view
    every 500 steps; step and update ms, kept samples/s, rays/s, samples a
    ray, the occupied share, peak memory, first and last loss, one 800x800
    eval view's rays/s, PSNR and SSIM; K1 as often a step as the traversal
@@ -152,7 +154,8 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    version on the phase's own inputs; a profile of three late steps with
    the plane and line gathers' backward (``index_add_``) shares; one step at
    256 rays on the card against the CPU (loss rtol 1e-5, gradients 3e-4 of
-   their largest entry); the last 16 steps' mean loss below the first 16's.
+   their largest entry); the last 16 steps' mean loss below the first 16's;
+   a late step's ms with native and numpy batches in turns, as phase 12.
 17. TiNeuVox: phase 14's run with ``train_mlp_tnerf --field tineuvox``
    (resolution 96): step ms, rays/s, K1 and K3 counted and held against
    their plain versions, a profile with the voxel taps' backward share, one
@@ -166,6 +169,28 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    ``gather_ray_od``'s backward and the scan's, and one step at 256 rays on
    the card against the CPU, the pose gradient included (loss rtol 1e-5,
    gradients 3e-4 of their largest entry).
+19. a Mip-NeRF 360 capture, loaded and trained: the host libraries
+   (``csrc/*.cpp``) built by ``g++``; the committed JPEG fixtures
+   (``tests/fixtures/jpeg``) decoded bit-equal to their arrays; the native
+   sampler taken by a procedural loader's training batch, its rays held
+   against the numpy path's geometry, a fetch timed through each path; a
+   COLMAP capture of the textured procedural scene (``CAPTURE_*``: 192 views
+   on three rings inside a textured backdrop sphere, PINHOLE, PNG) rendered
+   on the card and written under
+   ``build/``, loaded by the occupancy CLI's ``setup`` (``--scene garden
+   --data_root``: the 360 loader at factor 4) and trained through its
+   ``train`` at the unbounded block's full width (the dynamic ray count)
+   for up to 3000 steps or 90 s: train seconds, a late step's ms, the ray
+   count, kept samples/s, the visibility
+   filter's drop share, the fetch stage's host ms, peak memory, a profile of
+   three late steps (idle share, top kernels, the scan's gather backward),
+   the eval PSNR of the every-8th test views (at least ``CAPTURE_GATE_DB``),
+   the loss falling; K1 2 a step, K4-w3 1 a step and K3 4 an update, each
+   held against its plain version on the phase's own inputs.
+20. the profiler tools: ``python -m nerfacc_tpu_torch.scripts.run_profiler``
+   at the bench configuration (a time for every stage) and ``...
+   capture_trace`` over 3 steps and one update (its table names K1, K2 and
+   K3).
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -241,12 +266,13 @@ PROP_RAYS, PROP_CHUNK, PROP_START_STEP, PROP_VARIANT_ITERS = 4096, 8192, 1000, 1
 # at 800x800 (36 train views, 1 test view), aabb +-1, a 64^3 single-level
 # grid, step 5e-3, 8192 rays and 8192 x 32 sample slots, macro budget 24;
 # the fused encoder L4 x F16 with 2^18 entries, bf16, table_grad="factor"
-# (K2); constant Adam (1e-2, eps 1e-15), Huber loss.  Bounded to 3000 steps
+# (K2); constant Adam (1e-2, eps 1e-15), Huber loss.  Bounded to 2000 steps
+# (3000 before phase 19 took its share of the run; 33 dB comes by step 250)
 # or 120 s of train time; an eval every 250 steps (outside the clock).
 QUALITY_SIZE, QUALITY_TRAIN_VIEWS, QUALITY_RAYS = 800, 36, 8192
 QUALITY_GRID_RES, QUALITY_STEP, QUALITY_MACRO = 64, 5e-3, 24
 QUALITY_FIELD = dict(levels=4, feats=16, log2t=18, dtype="bf16")
-QUALITY_MAX_STEPS, QUALITY_BUDGET_S, QUALITY_EVAL_EVERY = 3000, 120.0, 250
+QUALITY_MAX_STEPS, QUALITY_BUDGET_S, QUALITY_EVAL_EVERY = 2000, 120.0, 250
 QUALITY_TARGET_DB, QUALITY_GATE_DB = 33.0, 30.0
 QUALITY_EVAL_CHUNK, QUALITY_CROP = 8192, 32
 # Phase 13: the vanilla NeRF of examples/train_mlp_nerf.py at its
@@ -256,8 +282,8 @@ QUALITY_EVAL_CHUNK, QUALITY_CROP = 8192, 32
 # an update every 16 steps (every cell below step 256), the eval in
 # 8192-ray chunks.  The textured procedural scene at 800x800 (phase 12's
 # generator, 36 train views) stands in for Lego.  Bounded to 3000 steps or
-# 60 s of train time.
-MLP_RAYS, MLP_TRAIN_VIEWS, MLP_MAX_STEPS, MLP_BUDGET_S = 1024, 36, 3000, 60.0
+# 45 s of train time (60 s before phase 19 took its share of the run).
+MLP_RAYS, MLP_TRAIN_VIEWS, MLP_MAX_STEPS, MLP_BUDGET_S = 1024, 36, 3000, 45.0
 MLP_EVAL_EVERY, MLP_EVAL_CHUNK, MLP_CPU_RAYS = 500, 8192, 256
 MLP_GATE_DB = 20.0
 # Phase 14: examples/train_mlp_tnerf.py's T-NeRF at its D-NeRF block
@@ -349,8 +375,8 @@ def profile_window(run, stages, what: str, out_name: str) -> dict:
     innermost range whose span on the GPU timeline holds it, the rest to
     "unattributed"), and the top kernels.  The full table goes to
     ``chiprun_out/<out_name>``.  Returns the device's busy milliseconds and
-    each kernel's ``(ms, count)`` by name, and each stage's device
-    milliseconds."""
+    the untraced wall milliseconds, each kernel's ``(ms, count)`` by name,
+    and each stage's device milliseconds and traced host milliseconds."""
     import bisect
     import gc
     import itertools
@@ -425,7 +451,7 @@ def profile_window(run, stages, what: str, out_name: str) -> dict:
     (out / out_name).write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
     )
-    return dict(busy_ms=busy * 1e3, kernels=by_kernel, stages=per_stage)
+    return dict(busy_ms=busy * 1e3, wall_ms=wall * 1e3, kernels=by_kernel, stages=per_stage, host=host)
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms):
@@ -1007,7 +1033,8 @@ def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wi
     marks), the parameters held where the gradients' signs
     agree and ``|g|`` is far above Adam's ``adam_eps`` and ``held_tols``
     times the gradient's tolerance (Adam's first step moves a parameter by
-    ``lr * g / (|g| + eps)``, which follows ``g`` closely only there)."""
+    ``lr * g / (|g| + eps)``, which follows ``g`` closely only there; with a
+    coupled weight decay ``g`` is ``g + wd p``, given as ``adam_grads``)."""
     if a["n"] != b["n"]:
         fail(f"card vs CPU ({label}): kept samples {a['n']} vs {b['n']}")
     loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -1025,12 +1052,20 @@ def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wi
         # agree within g_tol, and the step is held where the signs agree
         # and |g| is far above eps = 1e-15.
         agree = torch.sign(g_gpu) == torch.sign(g_cpu)
-        held = agree & (g_cpu.abs() > torch.clamp(held_tols * g_tol, min=max(1e-9, 100 * adam_eps)))
-        p_err = float(torch.where(held, a["params"][k] - b["params"][k], 0.0).abs().max())
+        # Adam normalises the gradient with its coupled weight decay added,
+        # g + wd p (``adam_grads`` where the step had a decay).
+        s_gpu, s_cpu = (d.get("adam_grads", d["grads"])[k] for d in (a, b))
+        held = (torch.sign(s_gpu) == torch.sign(s_cpu)) & (
+            s_cpu.abs() > torch.clamp(held_tols * g_tol, min=max(1e-9, 100 * adam_eps)))
+        p_diff = torch.where(held, a["params"][k] - b["params"][k], 0.0).abs()
+        p_err = float(p_diff.max())
         if not bool((err <= g_tol).all()) or not bool((g_cpu.abs() <= g_tol)[~agree].all()) or p_err > 1e-6:
+            i = int(p_diff.argmax())
             fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}"
                  + (f", {WIDE_TOL} at {int(wide[k].sum())} entries" if wide is not None and k in wide else "")
-                 + f"), params after Adam err {p_err:.3e}")
+                 + f"), params after Adam err {p_err:.3e} (there: g {float(g_gpu.flatten()[i]):.6e} card, "
+                 f"{float(g_cpu.flatten()[i]):.6e} CPU; Adam's g {float(s_gpu.flatten()[i]):.6e}, "
+                 f"{float(s_cpu.flatten()[i]):.6e})")
     table = f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), " if "encoder.table" in worst else ""
     print(
         f"card vs CPU train step ({label}, {what}): samples "
@@ -1728,14 +1763,40 @@ def prop_card_vs_cpu(dev, weights) -> None:
              f"{PROP_CHAINED_PROP_RTOL} (proposal loss)")
 
 
+def plain_summed_in_float64(plain, args):
+    """``plain(*args)`` with its sum of terms (``table_grad._sum_terms``)
+    taken in float64: the same float32 (or bf16) terms, added without the
+    float32 rounding of each partial sum, which both the kernel and the
+    plain version's ``index_add_`` carry, each in its own order."""
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    sum_terms = tg._sum_terms
+
+    def in_float64(sorted_idx, w8, d, n_rows):
+        terms = (w8.float()[:, :, None] * d.float()[:, None, :]).to(d.dtype).double()
+        out = torch.zeros((n_rows, tg.ROW_WIDTH), dtype=torch.float64, device=d.device)
+        return out.index_add_(0, sorted_idx.long(), terms.reshape(-1, tg.ROW_WIDTH))
+
+    tg._sum_terms = in_float64
+    try:
+        return plain(*args)
+    finally:
+        tg._sum_terms = sum_terms
+
+
 def grad_kernel_on_step_inputs(label, name, step, what) -> dict:
     """The table-gradient kernel ``ops.table_grad.<name>`` (``label`` in the
     prints) against its plain version on the inputs of one ``step()`` (the
     sorted rows, weights and cotangent as the fused encoder's backward
-    passes them); then its time, the plain version's, and the bytes and
-    operations of its bound, as phase 5 counts them: each input read once
-    but the sort's permutation, the table written once, a multiply and an
-    add a term."""
+    passes them): within 1e-5 of the largest row sum of the plain version's
+    terms summed in float64 (:func:`plain_summed_in_float64`; a row of a
+    trained field's coarse level sums tens of thousands of terms that
+    cancel, where any float32 order, the plain version's ``index_add_``
+    too, rounds to about 1e-5 of the largest row), the float32 plain
+    version's own distances printed beside it; then its time, the plain
+    version's, and the bytes and operations of its bound, as phase 5 counts
+    them: each input read once but the sort's permutation, the table written
+    once, a multiply and an add a term."""
     from nerfacc_tpu_torch.ops import table_grad as tg
 
     kernel, plain, calls = getattr(tg, name), getattr(tg, name + "_plain"), []
@@ -1756,13 +1817,16 @@ def grad_kernel_on_step_inputs(label, name, step, what) -> dict:
     if len(calls) != 1:
         fail(f"{label} on {what}: expected one call, saw {len(calls)}")
     args = calls[0]
-    got, want = kernel(*args), plain(*args)
+    got, want, exact = kernel(*args), plain(*args), plain_summed_in_float64(plain, args)
     torch.cuda.synchronize()
-    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    err, scale = float((got.double() - exact).abs().max()), float(exact.abs().max())
+    err32, plain_err = float((got - want).abs().max()), float((want.double() - exact).abs().max())
     n_sl, n_rows = args[0].numel(), args[-1]
     untouched = torch.bincount(args[0].long(), minlength=n_rows) == 0
     print(f"{label} on {what}: {n_sl} sample-levels over {n_rows} rows, {int((~untouched).sum())} rows "
-          f"named, max abs err {err:.3e} against plain (largest row sum {scale:.3e})", flush=True)
+          f"named, max abs err {err:.3e} against plain summed in float64 (largest row sum {scale:.3e}); "
+          f"against the float32 plain version {err32:.3e}, which is itself {plain_err:.3e} from the float64 sum",
+          flush=True)
     if not err <= 1e-5 * scale:
         fail(f"{label} disagrees with its plain version on {what}: {err} > 1e-5 * {scale}")
     if bool(got[untouched].any()):
@@ -1918,6 +1982,30 @@ def quality_run(dev, train_ds, seed: int):
         schedule=lambda count: 1e-2, generator=torch.Generator(device=dev).manual_seed(seed),
         max_macro=QUALITY_MACRO, max_macro_cap=QUALITY_MACRO,
     )
+
+
+def native_against_numpy(label, train, run, steps=32) -> dict:
+    """The ms of a late step with the loader's training batches from the
+    native sampler and from the numpy path (``NATIVE_SAMPLER``), in turns
+    (native, numpy, numpy, native), ``steps`` steps each (two updates),
+    host clock ending in a synchronize."""
+    from nerfacc_tpu_torch.datasets.nerf_synthetic import SubjectLoader
+
+    ms = {True: [], False: []}
+    for native in (True, False, False, True):
+        SubjectLoader.NATIVE_SAMPLER = native
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(run.step + steps)
+            torch.cuda.synchronize()
+        finally:
+            SubjectLoader.NATIVE_SAMPLER = True
+        ms[native].append((time.perf_counter() - t0) / steps * 1e3)
+    out = dict(native_ms=float(np.mean(ms[True])), numpy_ms=float(np.mean(ms[False])))
+    print(f"{label}: a step {out['native_ms']:.2f} ms with the native sampler's batches, {out['numpy_ms']:.2f} ms "
+          f"with the numpy path's ({steps} steps a turn: native {ms[True]}, numpy {ms[False]})", flush=True)
+    return out
 
 
 def train_quality(dev, card_line: str) -> dict:
@@ -2085,6 +2173,7 @@ def train_quality(dev, card_line: str) -> dict:
     if step != run.step or not rt_err <= 1e-6:
         fail(f"quality checkpoint: step {step} of {run.step}, render differs by {rt_err}")
     shutil.rmtree(ckpt, ignore_errors=True)
+    native_against_numpy("quality", lambda until: occ_cli.train(run, train_ds, until), run)
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(launches=launches, k1=k1, k2=k2, late_step_ms=late_ms, serve_rays_s=QUALITY_SIZE ** 2 / serve_s)
 
@@ -2914,8 +3003,8 @@ def train_encoders(dev, phase6_step_ms=None) -> dict:
 # resolution 96, width 64) at phase 14's block and scene, TNERF_STEPS steps.
 # Phase 18: train_barf at its non-smoke widths (the 8 x 256 field, 24 views
 # of 160x160, a 64^3 grid, 1024 rays x 64 slots, pose noise 0.10), its
-# schedules over BARF_MAX_STEPS (the example's 6000 cut to about a minute
-# of train time on an H100).
+# schedules over BARF_MAX_STEPS (the example's 6000 cut to about 50 s of
+# train time on an H100; 3000 before phase 19 took its share of the run).
 PLUGIN_FIELDS = ("tensorf", "kplanes")
 PLUGIN_SIZE, PLUGIN_TRAIN_VIEWS, PLUGIN_TEST_VIEWS = 160, 36, 2
 PLUGIN_MAX_STEPS, PLUGIN_BUDGET_S, PLUGIN_SEGMENT, PLUGIN_CPU_RAYS = 3000, 45.0, 250, 256
@@ -2923,7 +3012,7 @@ PLUGIN_MAX_STEPS, PLUGIN_BUDGET_S, PLUGIN_SEGMENT, PLUGIN_CPU_RAYS = 3000, 45.0,
 # largest entry (phases 8 and 15c hold the NGP MLPs there), BARF's pose
 # deltas too (phase 18: 3.34e-05 of the largest entry measured on an H100).
 PLUGIN_GRAD_TOL = 3e-4
-BARF_MAX_STEPS, BARF_BUDGET_S, BARF_SEGMENT = 3000, 150.0, 250
+BARF_MAX_STEPS, BARF_BUDGET_S, BARF_SEGMENT = 2000, 100.0, 250
 GATHER_STAGES = ("plane_gather_backward", "line_gather_backward", "voxel_gather_backward")
 
 
@@ -3033,12 +3122,15 @@ def step_card_vs_cpu(dev, label, step_fn, make_run, batch, loss_rtol, grad_tol, 
     for device in (dev, torch.device("cpu")):
         run = make_run(device)
         modules = [run.field] + ([run.poser] if hasattr(run, "poser") else [])
+        named = [(k, p) for m in modules for k, p in m.named_parameters()]
+        before = {k: p.detach().cpu().clone() for k, p in named}
         t0 = time.perf_counter()
         out = step_fn(run, *(t.to(device) for t in batch))
-        named = [(k, p) for m in modules for k, p in m.named_parameters()]
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu() for k, p in named}
+        decay = {id(p): g["weight_decay"] for g in run.opt.param_groups for p in g["params"]} if hasattr(run, "opt") else {}
         res.append(dict(
-            loss=float(out[0]), n=int(out[1]), s=time.perf_counter() - t0,
-            grads={k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu() for k, p in named},
+            loss=float(out[0]), n=int(out[1]), s=time.perf_counter() - t0, grads=grads,
+            adam_grads={k: grads[k] + decay.get(id(p), 0.0) * before[k] for k, p in named},
             params={k: p.detach().cpu() for k, p in named},
         ))
     hold_step(label, res[0], res[1], loss_rtol, grad_tol, what, adam_eps=adam_eps, held_tols=10.0)
@@ -3104,6 +3196,8 @@ def train_plugin_field(dev, name, train_ds, test_ds, card_line) -> dict:
           f"{last:.6f}, eval PSNR {p_final:.4f} over {len(metrics)} views; K1 {r['launches']['K1']} "
           f"({k1_per_step} a step), K3 {r['launches']['K3']} ({n_updates} updates); max_memory_allocated {peak} B",
           flush=True)
+
+    native_against_numpy(name, lambda until: cli.train(run, train_ds, until), run)
 
     # One step at 256 rays from the initial weights, card against CPU, with
     # 256 x 64 slots, on the grid of the initial weights' warm-up update (a
@@ -3229,7 +3323,431 @@ def train_barf_phase(dev, card_line) -> dict:
     return dict(launches=launches, k1=k1)
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+# Phase 19: a COLMAP capture of phase 12's textured procedural scene (192
+# views on rings at three heights, radius 2.5; garden has 185) inside a
+# textured backdrop sphere of radius 18 (sky, horizon and hills:
+# surroundings at a finite distance, as a real capture's are, inside the
+# outermost grid level once the cameras are normalised to radius 1, so
+# that the free space before it is seen from every side),
+# written as a Mip-NeRF 360 scene folder and trained through the occupancy
+# CLI's own setup and loop (``--scene garden --data_root <capture>``): its
+# unbounded block at full width (:61-71: 4 levels of 128^3, near 0.2, step
+# 1e-3, cone 0.004, alpha threshold 1e-2; the fused field L8 x F16 with 2^18
+# entries, float32; the 360 loader at factor 4; the port's dynamic ray count
+# from 1024 up to 8192 rays, up to 2^21 traversal slots and 2^18 for the
+# survivors, where the JAX example fixes 8192 rays and 2^18 slots),
+# cut to CAPTURE_MAX_STEPS steps (the schedule's length) or CAPTURE_BUDGET_S
+# of train time.  The views of images_4/ are 504x336 (a real capture's
+# factor-4 views are about 1297x840); images/ holds the same PNGs under
+# COLMAP's names, as the loader reads only their names there.
+CAPTURE_RINGS = ((64, -15.0), (64, -30.0), (64, -45.0))  # (views, elevation in degrees)
+CAPTURE_W4, CAPTURE_H4, CAPTURE_RADIUS, CAPTURE_BACKDROP = 504, 336, 2.5, 18.0
+CAPTURE_MAX_STEPS, CAPTURE_BUDGET_S, CAPTURE_SEGMENT = 3000, 90.0, 250
+CAPTURE_GATE_DB = 24.0  # the eval-PSNR floor written before the first run
+CAPTURE_SCENE = "garden"
+JPEG_FIXTURES = "tests/fixtures/jpeg"
+
+
+def sky(d: torch.Tensor) -> torch.Tensor:
+    """The backdrop's texture at unit directions ``d`` from its centre (world
+    up +y): a ground and a sky blended across the horizon, with a band of
+    hills."""
+    up = d[:, 1:2]
+    s = torch.sigmoid(8.0 * up)
+    ground = torch.tensor([0.35, 0.30, 0.22], device=d.device)
+    blue = torch.tensor([0.55, 0.72, 0.95], device=d.device)
+    hills = 0.08 * torch.sin(5.0 * torch.atan2(d[:, 2:3], d[:, 0:1])) * torch.exp(-30.0 * up * up)
+    return (ground * (1 - s) + blue * s + hills).clamp(0.0, 1.0)
+
+
+def qvec_from_rotation(R: np.ndarray) -> np.ndarray:
+    """COLMAP's (w, x, y, z) of a rotation matrix."""
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    x = np.copysign(np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2, R[2, 1] - R[1, 2])
+    y = np.copysign(np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2, R[0, 2] - R[2, 0])
+    z = np.copysign(np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2, R[1, 0] - R[0, 1])
+    return np.array([w, x, y, z])
+
+
+def write_capture(root, dev) -> dict:
+    """Renders the capture on the card and writes ``root/CAPTURE_SCENE``:
+    ``sparse/0/cameras.bin`` (one PINHOLE camera at 4x the views' size) and
+    ``images.bin`` (OpenCV world-to-camera poses, in another order than the
+    names), ``images_4/`` and ``images/`` (PNG).  Returns the timings."""
+    import struct
+    from pathlib import Path
+
+    from nerfacc_tpu_torch.datasets.png import encode_png
+    from nerfacc_tpu_torch.datasets.procedural import _render_pose_chunk, pose_spherical, scene_rgb_density
+    from nerfacc_tpu_torch.datasets.utils import camera_rays
+
+    scene = Path(root) / CAPTURE_SCENE
+    for sub in ("sparse/0", "images", "images_4"):
+        (scene / sub).mkdir(parents=True)
+    w, h = CAPTURE_W4, CAPTURE_H4
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    xx, yy = xx.reshape(-1).astype(np.float32), yy.reshape(-1).astype(np.float32)
+    poses = []
+    for r, (n, elev) in enumerate(CAPTURE_RINGS):
+        for i in range(n):
+            theta = 2 * np.pi * (i + 0.5 * r) / n
+            poses.append(pose_spherical(theta, math.radians(elev), CAPTURE_RADIUS))  # OpenGL
+    render_s = write_s = 0.0
+    pngs = []
+    for c2w in poses:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, d = camera_rays(xx, yy, K, c2w[:3, :4], opengl=True)
+        o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+        parts = []
+        for j in range(0, o.shape[0], 65536):
+            color, opacity = _render_pose_chunk(o[j : j + 65536], d[j : j + 65536], CAPTURE_RADIUS - 1.2,
+                                                CAPTURE_RADIUS + 1.2, lambda p: scene_rgb_density(p, 1.0))
+            oj, dj = o[j : j + 65536], d[j : j + 65536]
+            # The backdrop sphere's far hit (the cameras are inside it).
+            b = (oj * dj).sum(-1, keepdim=True)
+            t = -b + torch.sqrt(b * b - (oj * oj).sum(-1, keepdim=True) + CAPTURE_BACKDROP**2)
+            hit = oj + t * dj
+            parts.append(color + (1.0 - opacity) * sky(hit / hit.norm(dim=-1, keepdim=True)))
+        rgb = (torch.cat(parts).clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy().reshape(h, w, 3)
+        render_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pngs.append(encode_png(rgb))
+        write_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    names = [f"IMG_{i:04d}.png" for i in range(len(poses))]
+    for name, data in zip(names, pngs):
+        (scene / "images_4" / name).write_bytes(data)
+        (scene / "images" / name).write_bytes(data)
+    with open(scene / "sparse/0/cameras.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", 1))
+        fh.write(struct.pack("<iiQQ", 1, 1, 4 * w, 4 * h))  # model 1: PINHOLE
+        fh.write(struct.pack("<4d", 4 * f, 4 * f, 4 * w / 2, 4 * h / 2))
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])  # OpenGL -> OpenCV camera axes
+    order = np.random.default_rng(19).permutation(len(poses))
+    with open(scene / "sparse/0/images.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", len(poses)))
+        for img_id, i in enumerate(order, start=1):
+            w2c = np.linalg.inv(poses[i].astype(np.float64) @ flip)
+            fh.write(struct.pack("<I", img_id))
+            fh.write(struct.pack("<4d", *qvec_from_rotation(w2c[:3, :3])))
+            fh.write(struct.pack("<3d", *w2c[:3, 3]))
+            fh.write(struct.pack("<I", 1))
+            fh.write(names[i].encode() + b"\x00")
+            fh.write(struct.pack("<Q", 0))
+    write_s += time.perf_counter() - t0
+    return dict(views=len(poses), render_s=render_s, write_s=write_s,
+                bytes=sum(len(p) for p in pngs))
+
+
+def jpeg_fixtures_on_card_machine() -> int:
+    """Every committed JPEG fixture decoded by the port's host library, held
+    bit-equal to its committed array (``imageio``'s decode)."""
+    from pathlib import Path
+
+    from nerfacc_tpu_torch.datasets.jpeg import read_jpeg
+
+    paths = sorted((Path(__file__).resolve().parent / JPEG_FIXTURES).glob("*.jpg"))
+    if len(paths) < 5:
+        fail(f"jpeg fixtures: found {len(paths)} under {JPEG_FIXTURES}")
+    for p in paths:
+        got, want = read_jpeg(str(p)), np.load(p.with_suffix(".npy"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max() if got.shape == want.shape else None
+            fail(f"jpeg fixture {p.name}: the decode differs from its array (shape {got.shape} vs "
+                 f"{want.shape}, max diff {diff})")
+    print(f"jpeg fixtures: {len(paths)} decoded bit-equal to their arrays: {[p.name for p in paths]}", flush=True)
+    return len(paths)
+
+
+def native_sampler_on_card(dev) -> dict:
+    """The native sampler where the script runs: built, taken by a procedural
+    ``nerf_synthetic.SubjectLoader``'s training batch on the card (one
+    ``sample_rays`` call a batch), its rays held against the numpy path's
+    geometry (``tests/test_native.py:17``): unit directions through pixel
+    centres of the ray's own view, the numpy path's ray at that pixel within
+    1e-6, the camera's centre as origin, the pixel composited over the
+    background.  Then a fetch's host ms through each path."""
+    from nerfacc_tpu_torch.datasets import _native
+    from nerfacc_tpu_torch.datasets.nerf_synthetic import SubjectLoader
+    from nerfacc_tpu_torch.datasets.procedural import make_loaders
+    from nerfacc_tpu_torch.datasets.utils import camera_rays
+
+    t0 = time.perf_counter()
+    _native.get_lib()
+    build_s = time.perf_counter() - t0
+    train_ds, _ = make_loaders(num_rays=8192, width=64, height=64, n_train=4, n_test=1, device=dev)
+    train_ds.color_bkgd_aug = "random"
+    real, calls = _native.sample_rays, []
+
+    def counting(*args):
+        calls.append(1)
+        return real(*args)
+
+    _native.sample_rays = counting
+    try:
+        batch = train_ds[0]
+    finally:
+        _native.sample_rays = real
+    if len(calls) != 1 or batch["rays"].origins.device.type != "cuda":
+        fail(f"native sampler: a training batch made {len(calls)} sample_rays calls, on "
+             f"{batch['rays'].origins.device}")
+    o, d, pix = (t.cpu().numpy().astype(np.float64) for t in (batch["rays"].origins, batch["rays"].viewdirs,
+                                                               batch["pixels"]))
+    bkgd = batch["color_bkgd"].cpu().numpy()
+    ids = train_ds._last_image_id
+    c2w = train_ds.camtoworlds[ids, :3, :4].astype(np.float64)
+    K = train_ds.K.astype(np.float64)
+    cam = np.einsum("nji,nj->ni", c2w[:, :, :3], d)  # R^T d, OpenGL: (a, -b, -1)
+    px = cam[:, 0] / -cam[:, 2] * K[0, 0] + K[0, 2] - 0.5
+    py = -cam[:, 1] / -cam[:, 2] * K[1, 1] + K[1, 2] - 0.5
+    ix, iy = np.rint(px).astype(np.int64), np.rint(py).astype(np.int64)
+    off = max(float(np.abs(px - ix).max()), float(np.abs(py - iy).max()))
+    no, nd = camera_rays(ix.astype(np.float32), iy.astype(np.float32), train_ds.K, train_ds.camtoworlds[ids, :3, :4])
+    rgba = train_ds.images[ids, iy, ix].astype(np.float64) / 255.0
+    want = rgba[:, :3] * rgba[:, 3:] + bkgd * (1 - rgba[:, 3:])
+    errs = dict(off_pixel_centre=off, dir=float(np.abs(nd - d).max()), origin=float(np.abs(no - o).max()),
+                pixel=float(np.abs(want - pix).max()), norm=float(np.abs(np.linalg.norm(d, axis=-1) - 1).max()))
+    print(f"native sampler: built/loaded in {build_s:.2f} s, {_native.num_threads()} OpenMP threads, one batch of "
+          f"8192 rays through it; against the numpy path's geometry: {errs}", flush=True)
+    if not (errs["off_pixel_centre"] < 1e-2 and errs["dir"] <= 1e-6 and errs["origin"] == 0.0
+            and errs["pixel"] <= 1e-6 and errs["norm"] <= 1e-5):
+        fail(f"native sampler: rays off the numpy path's geometry: {errs}")
+    ms = {}
+    for native in (True, False):
+        SubjectLoader.NATIVE_SAMPLER = native
+        try:
+            train_ds[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(20):
+                train_ds[i]
+            torch.cuda.synchronize()
+        finally:
+            SubjectLoader.NATIVE_SAMPLER = True
+        ms["native" if native else "numpy"] = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"native sampler: a fetch of 8192 rays onto the card takes {ms['native']:.3f} ms native, "
+          f"{ms['numpy']:.3f} ms numpy (host clock, 20 fetches each)", flush=True)
+    return dict(build_s=build_s, fetch_ms=ms, errs=errs)
+
+
+def train_capture(dev, card_line) -> dict:
+    """Phase 19: builds the host libraries, decodes the JPEG fixtures, checks
+    the native sampler, writes the capture, loads it through the occupancy
+    CLI's ``setup`` (the 360 loader) and trains it through the CLI's
+    ``train``: launches counted and held to the path's (K1 2 a step, K4-w3
+    1 a step, K3 4 an update), K1, K4-w3 and K3 held against their plain
+    versions on the phase's own inputs, the filter's drop share, a profile
+    of three late steps, the eval views' PSNR (the floor
+    ``CAPTURE_GATE_DB``) and the loss falling."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from nerfacc_tpu_torch.datasets.nerf_360_v2 import SubjectLoader as Capture
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+    from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as cli
+    from nerfacc_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    _build.build(_build.host_names())
+    print(f"host libraries built in {time.perf_counter() - t0:.2f} s: {_build.host_names()}", flush=True)
+    n_fixtures = jpeg_fixtures_on_card_machine()
+    native = native_sampler_on_card(dev)
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="capture_360_", dir=build)
+    try:
+        cap = write_capture(root, dev)
+        print(f"capture: {cap['views']} views of {CAPTURE_W4}x{CAPTURE_H4} rendered on the card in "
+              f"{cap['render_s']:.2f} s, {cap['bytes']} bytes of PNG written in {cap['write_s']:.2f} s", flush=True)
+        argv = ["--scene", CAPTURE_SCENE, "--data_root", root, "--max_steps", str(CAPTURE_MAX_STEPS)]
+        args = cli.parse_args(argv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run, train_ds, test_ds, chunk = cli.setup(args)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    cfg = run.cfg
+    if not (isinstance(train_ds, Capture) and isinstance(test_ds, Capture)):
+        fail(f"capture: the CLI built {type(train_ds).__name__}, not nerf_360_v2.SubjectLoader")
+    print(f"capture: loaded through the CLI's 360 loader in {load_s:.2f} s: {len(train_ds)} train and "
+          f"{len(test_ds)} test views of {train_ds.WIDTH}x{train_ds.HEIGHT}, K {train_ds.K.tolist()}, camera "
+          f"distances {np.linalg.norm(train_ds.camtoworlds[:, :3, 3], axis=-1).min():.4f} to "
+          f"{np.linalg.norm(train_ds.camtoworlds[:, :3, 3], axis=-1).max():.4f}", flush=True)
+    want_cfg = dict(grid_nlvl=4, grid_resolution=128, near_plane=0.2, render_step_size=1e-3, cone_angle=0.004,
+                    alpha_thre=1e-2, num_rays=8192, target_sample_batch_size=1 << 18, unbounded=True,
+                    dynamic_rays=True, traversal_capacity=1 << 21)
+    if any(cfg[k] != v for k, v in want_cfg.items()):
+        fail(f"capture: the CLI's block {({k: cfg[k] for k in want_cfg})} is not the unbounded one {want_cfg}")
+
+    # Warm-up on a throwaway run of the same block: cuBLAS handles, the allocator.
+    est = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=cfg["grid_nlvl"])
+    field = cli.make_field(cfg, est, device=dev, generator=torch.Generator().manual_seed(1))
+    cli.train(cli.Run(cfg=cfg, field=field, estimator=est, occ_state=est.init(dev),
+                      opt=cli.make_optimizer(field, cfg["weight_decay"]), schedule=cli.lr_schedule(cfg["max_steps"]),
+                      generator=torch.Generator(device=dev).manual_seed(1)), train_ds, 2)
+    del est, field
+    _, use_skip, *_ = run.estimator.plan_traversal(cfg["render_step_size"], cfg["cone_angle"], cfg["near_plane"])
+    k1_per_step = 1 + int(use_skip)
+    traversed = []
+    make_fns = cli.make_fns
+
+    def counting_fns(field, rays_o, rays_d):
+        # The density pass's samples (the traversal's, before the filter).
+        sigma_fn, rgb_sigma_fn = make_fns(field, rays_o, rays_d)
+
+        def recorded(ts, te, ri):
+            traversed.append((te > ts).sum())
+            return sigma_fn(ts, te, ri)
+
+        return recorded, rgb_sigma_fn
+
+    # Each step's (traversed, visible, unslotted) sample counts, on the card.
+    step_counts = []
+    train_step = cli.train_step
+
+    def counted_step(run_, *args):
+        out = train_step(run_, *args)
+        step_counts.append(run_.sample_counts)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    cli.make_fns, cli.train_step = counting_fns, counted_step
+    try:
+        r = train_segments("capture", lambda until: cli.train(run, train_ds, until), run, CAPTURE_MAX_STEPS,
+                           CAPTURE_BUDGET_S, CAPTURE_SEGMENT, counted_kernels(),
+                           probe=lambda: {"num_rays": train_ds.num_rays, "traversal_slots": run.traversal_slots or 0})
+    finally:
+        cli.make_fns, cli.train_step = make_fns, train_step
+    c = torch.stack(step_counts).double()
+    slots = cfg["target_sample_batch_size"]
+    # Steps whose traversal or survivors overflowed their slots (the last
+    # rays then lose samples), and the share of samples so lost.
+    short = dict(steps=float(((c[:, 2] > 0) | (c[:, 1] > slots)).double().mean()),
+                 traversed_lost=float(c[:, 2].sum() / c[:, 0].sum()),
+                 visible_lost=float((c[:, 1] - slots).clamp(min=0).sum() / c[:, 1].sum()))
+    n_steps, peak = run.step, torch.cuda.max_memory_allocated()
+    n_updates = (n_steps + cli.OCC_EVERY - 1) // cli.OCC_EVERY
+    launches = r["launches"]
+    want = dict.fromkeys(launches, 0)
+    want.update({"K1": k1_per_step * n_steps, "K4-w3": n_steps, "K3": cfg["grid_nlvl"] * n_updates})
+    if launches != want:
+        fail(f"capture: launches {launches} over {n_steps} steps and {n_updates} updates, expected {want}")
+    first, last = falling("capture", r["losses"])
+    kept = int(torch.stack(r["n_samps"]).sum())
+    drop = 1.0 - kept / max(int(torch.stack(traversed).sum()), 1)
+    stages = ("fetch", "traverse_and_compact", "visibility", "field_forward", "gather_combine", "rendering",
+              "backward", "table_grad", "optimizer", "occ_update")
+    # Both windows of the profile (untraced, then traced) between two updates.
+    cli.train(run, train_ds, run.step + (1 - run.step) % cli.OCC_EVERY)
+    prof = profile_window(lambda: cli.train(run, train_ds, run.step + 3), stages,
+                          f"capture (3 steps from step {run.step})", "profile_train_capture.txt")
+    shares = gather_shares("capture", prof)
+    fetch_ms = prof["host"]["fetch"] / 3
+    k1 = k1_on_a_late_step(lambda: cli.train(run, train_ds, run.step + 1), run)
+    if run.step % cli.OCC_EVERY == 0:
+        cli.train(run, train_ds, run.step + 1)
+    k4 = grad_kernel_on_step_inputs("K4-w3", "table_grad_w3", lambda: cli.train(run, train_ds, run.step + 1),
+                                    "one capture step")
+    k3 = k3_on_update_inputs(lambda: cli.occ_update(run, warmup=False), dev, levels=cfg["grid_nlvl"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = cli.evaluate(run, test_ds, chunk)
+    eval_s = time.perf_counter() - t0
+    p_final = float(np.mean([m["psnr"] for m in metrics]))
+    print(json.dumps({"capture": {
+        "card": card_line, "views": cap["views"], "size": [CAPTURE_W4, CAPTURE_H4], "train_views": len(train_ds),
+        "test_views": len(test_ds), "load_s": load_s, "steps": n_steps, "train_s": r["train_s"],
+        "late_step_ms": r["late_ms"], "update_ms": r["update_ms"], "samples_per_s": kept / r["train_s"],
+        "kept_per_step": kept / n_steps, "num_rays_last": train_ds.num_rays,
+        "traversal_slots_last": run.traversal_slots, "over_capacity": short, "drop_share": drop,
+        "max_macro": run.max_macro,
+        "occupied": float(run.occ_state.binaries.float().mean()), "peak_bytes": peak, "loss_first": first,
+        "loss_last": last, "eval_psnr": p_final, "eval_psnr_views": [m["psnr"] for m in metrics],
+        "eval_ssim": float(np.mean([m["ssim"] for m in metrics])), "eval_s": eval_s,
+        "eval_rays_per_s": len(test_ds) * train_ds.WIDTH * train_ds.HEIGHT / eval_s, "fetch_host_ms": fetch_ms,
+        "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"], "k1_per_step": k1_per_step,
+        "launches": {k: launches[k] for k in ("K1", "K4-w3", "K3")}, "profile": shares,
+        "native_fetch_ms": native["fetch_ms"], "jpeg_fixtures": n_fixtures, "curve": r["curve"],
+    }}), flush=True)
+    print(f"capture: {n_steps} steps in {r['train_s']:.3f} s, late step {r['late_ms']:.2f} ms, update "
+          f"{r['update_ms']:.2f} ms, {kept / r['train_s']:.1f} kept samples/s, the filter dropped {drop:.4f} of the "
+          f"traversed samples, {short['steps']:.4f} of the steps over a capacity ({short['traversed_lost']:.2e} of "
+          f"the traversed and {short['visible_lost']:.2e} of the visible samples lost), fetch {fetch_ms:.3f} ms "
+          f"host; eval PSNR {p_final:.4f} over {len(metrics)} views "
+          f"(floor {CAPTURE_GATE_DB}); loss first {first:.6f} last {last:.6f}; launches K1 {launches['K1']} "
+          f"K4-w3 {launches['K4-w3']} K3 {launches['K3']}; max_memory_allocated {peak} B", flush=True)
+    if not p_final >= CAPTURE_GATE_DB:
+        fail(f"capture: eval PSNR {p_final:.4f} below the floor {CAPTURE_GATE_DB}")
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k3=k3, k4=k4)
+
+
+# Phase 20: the two profiler scripts, each as ``python -m``, at bench.py's
+# train configuration (TRAIN_*, bf16: K1, K2 and K3 on the path).
+PROFILER_KERNELS = {"K1": "occ_query_kernel", "K2": "table_grad_u10_kernel", "K3": "cell_max_kernel"}
+
+
+def profiler_tools() -> dict:
+    """Phase 20: ``scripts.run_profiler`` at the bench configuration (3
+    iterations a stage; every stage's time must be printed), then
+    ``scripts.capture_trace`` over 3 steps and one occupancy update, whose
+    ``parse`` table must name K1's, K2's and K3's kernels."""
+    from pathlib import Path
+
+    from nerfacc_tpu_torch.scripts import run_profiler
+
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+
+    def script(name, *argv):
+        """Runs the script; prints its first 20 lines and those that name K1,
+        K2 or K3, and writes all of them to ``chiprun_out/<name>.txt``."""
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"nerfacc_tpu_torch.scripts.{name}", *argv], cwd=repo,
+                              capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.splitlines()
+        for i, line in enumerate(lines):
+            if i < 20 or any(word in line for word in PROFILER_KERNELS.values()):
+                print(f"{name}: {line}", flush=True)
+        (repo / "chiprun_out").mkdir(exist_ok=True)
+        (repo / "chiprun_out" / f"{name}.txt").write_text(proc.stdout)
+        if proc.returncode != 0:
+            fail(f"{name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    bench = ["--rays", str(TRAIN_RAYS), "--capacity", str(TRAIN_CAPACITY), "--dtype", "bf16"]
+    out, prof_s = script("run_profiler", *bench, "--iters", "3")
+    stages = {}
+    for line in out.splitlines():
+        for name in run_profiler.STAGES:
+            if line.startswith(name) and line.rstrip().endswith(" ms"):
+                stages[name] = float(line[len(name):].split()[0])
+    missing = [s for s in run_profiler.STAGES if s not in stages]
+    if missing:
+        fail(f"run_profiler: no time for the stages {missing}")
+    trace_dir = repo / "build" / "phase20_trace"
+    # Every kernel of the window in the table (K1 is one of the shortest).
+    out, trace_s = script("capture_trace", *bench, "--steps", "3", "--occ-update", "--top", "1000",
+                          "--out", str(trace_dir))
+    table = [line for line in out.splitlines() if " ms  " in line]
+    named = {k: any(word in line for line in table) for k, word in PROFILER_KERNELS.items()}
+    if not all(named.values()):
+        fail(f"capture_trace: its table names no kernel of {[k for k, v in named.items() if not v]}")
+    total = [line for line in out.splitlines() if line.startswith("total device kernel time")]
+    print(f"profiler tools: run_profiler {prof_s:.1f} s (every stage timed, full step "
+          f"{stages['FULL train step']:.2f} ms), capture_trace {trace_s:.1f} s ({total[0] if total else '?'}; "
+          f"names K1, K2 and K3); phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(stages=stages)
+
+
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -3353,6 +3871,12 @@ def main(argv=None) -> None:
     if 18 in run:
         barf = train_barf_phase(dev, card_line)
 
+    # ---- 19. a COLMAP capture, loaded and trained; 20. the profiler tools --
+    if 19 in run:
+        capture = train_capture(dev, card_line)
+    if 20 in run:
+        profiler_tools()
+
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
         # K1's launches here are the fused train path's (phase 6); the serve
@@ -3430,11 +3954,11 @@ def main(argv=None) -> None:
                        enc["soa"]["k3"]["err"], enc["soa"]["k3"]["ms"], enc["soa"]["k3"]["plain_ms"],
                        enc["soa"]["k3"]["bytes"], enc["soa"]["k3"]["ops"], enc["soa"]["k3"]["library_ms"]),
         ]
-        # K1 and K3 on the T-NeRF path (phase 14) and the plug-in fields'
-        # paths (phases 16 and 17: one late step's lattice queries, one
-        # update's draws), and K1 on BARF's (18).
-        paths = [("tnerf", tn)] + [(name, plug[name]) for name in PLUGIN_FIELDS] + [("tineuvox", tnv),
-                                                                                    ("barf", barf)]
+        # K1 and K3 on the T-NeRF path (phase 14), the plug-in fields'
+        # paths (phases 16 and 17) and the capture's (19): one late step's
+        # lattice queries, one update's draws; K1 on BARF's (18).
+        paths = [("tnerf", tn)] + [(name, plug[name]) for name in PLUGIN_FIELDS] + [
+            ("tineuvox", tnv), ("barf", barf), ("capture", capture)]
         for name, p in paths:
             lat = p["k1"]["lattice"]
             kernels.append(kernel_row(f"occupancy_query_{name}", src + "occ_query.cu",
@@ -3445,6 +3969,11 @@ def main(argv=None) -> None:
                 kernels.append(kernel_row(f"cell_max_{name}", src + "cell_max.cu", tg_py + "1918",
                                           p["launches"]["K3"], k3["err"], k3["ms"], k3["plain_ms"], k3["bytes"],
                                           k3["ops"], k3["library_ms"]))
+        # K4-w3 on the capture's train path (phase 19), on one step's own inputs.
+        k4 = capture["k4"]
+        kernels.append(kernel_row("table_grad_w3_capture", src + "table_grad.cu", tg_py + "572",
+                                  capture["launches"]["K4-w3"], k4["err"], k4["ms"], k4["plain_ms"], k4["bytes"],
+                                  k4["ops"], None))
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,4 +1,5 @@
-"""Datasets: camera rays, the NeRF-Synthetic and D-NeRF loaders and the procedural scenes."""
+"""Datasets: camera rays, the NeRF-Synthetic, D-NeRF and Mip-NeRF 360 loaders, the
+COLMAP, PNG and JPEG readers, the native ray sampler and the procedural scenes."""
 
 from .utils import Rays, generate_rays, namedtuple_map
 

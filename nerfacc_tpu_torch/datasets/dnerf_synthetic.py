@@ -3,7 +3,9 @@
 Port of ``nerfacc_tpu/datasets/dnerf_synthetic.py``: the NeRF-Synthetic
 format plus a per-frame ``time`` in ``[0, 1]`` (``i / (n - 1)`` for a frame
 without one), threaded through each ray batch as ``timestamps``: ``(n, 1)``
-for a training batch, ``(H, W, 1)`` for an eval image.  PNGs are read by the
+for a training batch, ``(H, W, 1)`` for an eval image; a batch from the
+native sampler takes each ray's view from the sampler's seed
+(``_native_image_ids``), as the JAX loader does.  PNGs are read by the
 port's own decoder, through the static loader.
 """
 

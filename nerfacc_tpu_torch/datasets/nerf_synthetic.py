@@ -7,10 +7,14 @@ over a background colour.  Batches are made in numpy on the host, with the
 JAX package's numpy draws (the same seed gives the same batches), and each
 batch goes to ``device`` in one transfer.
 
-The JAX loader also has a native OpenMP sampler for training batches
-(``nerf_synthetic.py:151-185``, ``datasets/_native.py``); it is not ported
-yet, so this loader always takes the numpy path.  PNGs are read by the
-port's own decoder (:mod:`~nerfacc_tpu_torch.datasets.png`).
+Training batches over images go through the native OpenMP sampler
+(``csrc/rayforge.cpp``, :mod:`~nerfacc_tpu_torch.datasets._native`), as in
+the JAX loader once its library is built (``nerf_synthetic.py:140-185``):
+the same numpy draws pick the background and the sampler's seed, so both
+give the same batches.  The port builds the sampler at first use; setting
+``NATIVE_SAMPLER`` to False on the class takes the numpy path, the JAX
+loader's path while its library is not built.  PNGs are read by the port's
+own decoder (:mod:`~nerfacc_tpu_torch.datasets.png`).
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import _native
 from .png import read_png
-from .utils import Rays, camera_rays
+from .utils import batch_on_device, camera_rays
 
 
 def _load_renderings(root_fp: str, subject_id: str, split: str):
@@ -55,6 +60,7 @@ class SubjectLoader:
     WIDTH, HEIGHT = 800, 800
     NEAR, FAR = 2.0, 6.0
     OPENGL_CAMERA = True
+    NATIVE_SAMPLER = True  # training batches over images through csrc/rayforge.cpp
 
     def __init__(
         self,
@@ -129,12 +135,29 @@ class SubjectLoader:
             return np.zeros(3, np.float32)
         return np.ones(3, np.float32)
 
+    def _native_image_ids(self, seed: int, n_rays: int) -> np.ndarray:
+        """Each ray's view in the native sampler's batch for ``seed``."""
+        return _native.image_ids(seed, n_rays, len(self.images))
+
+    def _to_device(self, origins, viewdirs, pixels, color_bkgd) -> dict:
+        shape = (origins.shape[0], 3) if self.training else (self.HEIGHT, self.WIDTH, 3)
+        return batch_on_device(origins, viewdirs, pixels, color_bkgd, shape, self.device)
+
     def fetch_data(self, index: int) -> dict:
         """One batch: random pixels across images (train) or the full image
         ``index`` (eval).  Returns a dict with ``rays`` (:class:`Rays`),
         ``pixels`` and ``color_bkgd``, on ``device``."""
         rng = self._rng
         num_rays = self.num_rays
+        if self.training and self.batch_over_images and self.NATIVE_SAMPLER:
+            # The JAX loader's native branch, its draws in its order.
+            color_bkgd = self._background()
+            seed = int(rng.integers(0, 2**63 - 1))
+            o, d, pixels = _native.sample_rays(
+                self.images, self.camtoworlds, self.K, color_bkgd, seed, num_rays, self.OPENGL_CAMERA
+            )
+            self._last_image_id = self._native_image_ids(seed, num_rays)
+            return self._to_device(o, d, pixels, color_bkgd)
         if self.training:
             if self.batch_over_images:
                 image_id = rng.integers(0, len(self.images), size=(num_rays,))
@@ -160,12 +183,4 @@ class SubjectLoader:
         else:
             pixels = rgba
 
-        # One host-to-device transfer a batch.
-        n = origins.shape[0]
-        flat = np.concatenate(
-            [origins.reshape(-1), viewdirs.reshape(-1), pixels.reshape(-1), color_bkgd]
-        ).astype(np.float32)
-        flat = torch.from_numpy(flat).to(self.device)
-        shape = (n, 3) if self.training else (self.HEIGHT, self.WIDTH, 3)
-        o, d, p = (flat[i * 3 * n : (i + 1) * 3 * n].view(shape) for i in range(3))
-        return {"rays": Rays(origins=o, viewdirs=d), "pixels": p, "color_bkgd": flat[9 * n :]}
+        return self._to_device(origins, viewdirs, pixels, color_bkgd)

@@ -53,6 +53,8 @@ def _unfilter(raw: np.ndarray, height: int, width: int, bpp: int, path: str) -> 
     bad = np.flatnonzero(kinds > 4)
     if bad.size:
         raise ValueError(f"{path}: unknown PNG row filter {kinds[bad[0]]} in row {bad[0]}")
+    if not kinds.any():  # every row unfiltered, as write_png writes them
+        return rows[:, 1:].reshape(height, width, bpp).copy()
     lines = rows[:, 1:].reshape(height, width, bpp).astype(np.int32)
     # A zero row above and a zero column to the left, as the filters assume.
     buf = np.zeros((height + 1, width + 1, bpp), np.int32)

@@ -71,3 +71,17 @@ def generate_rays(
         origins=torch.from_numpy(origins).to(device),
         viewdirs=torch.from_numpy(viewdirs).to(device),
     )
+
+
+def batch_on_device(origins: np.ndarray, viewdirs: np.ndarray, pixels: np.ndarray, color_bkgd: np.ndarray,
+                    shape: Tuple[int, ...], device: torch.device) -> dict:
+    """A loader's batch dict (``rays``, ``pixels``, ``color_bkgd``) on
+    ``device`` in one host-to-device transfer; the rays and pixels take
+    ``shape`` (``(n, 3)`` or ``(H, W, 3)``)."""
+    n = origins.size // 3
+    flat = np.concatenate(
+        [origins.reshape(-1), viewdirs.reshape(-1), pixels.reshape(-1), color_bkgd]
+    ).astype(np.float32)
+    flat = torch.from_numpy(flat).to(device)
+    o, d, p = (flat[i * 3 * n : (i + 1) * 3 * n].view(shape) for i in range(3))
+    return {"rays": Rays(origins=o, viewdirs=d), "pixels": p, "color_bkgd": flat[9 * n :]}

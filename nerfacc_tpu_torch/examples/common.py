@@ -1,5 +1,5 @@
 """Helpers shared by the port's CLIs: metrics, chunked eval renders, a
-timer and the scene lists.
+timer, the scene lists and the loaders of a scene on disk.
 
 Port of ``examples/common.py``.
 """
@@ -22,6 +22,26 @@ NERF_SYNTHETIC_SCENES = [
 MIPNERF360_UNBOUNDED_SCENES = [
     "garden", "bicycle", "bonsai", "counter", "kitchen", "room", "stump",
 ]
+
+
+def scene_loaders(scene: str, data_root: str, train_split: str, num_rays: int, device):
+    """The train and test loaders of ``scene`` under ``data_root``: a
+    Mip-NeRF 360 scene through ``nerf_360_v2.SubjectLoader`` with upstream
+    nerfacc's arguments (``factor=4`` for both splits, a random background
+    for training), any other through the NeRF-Synthetic loader.  The JAX
+    examples open every scene with the NeRF-Synthetic loader
+    (``examples/train_ngp_nerf_occ.py:33,136-145``), which fails on a
+    COLMAP folder (``ROADMAP.md``, Queue 3)."""
+    if scene in MIPNERF360_UNBOUNDED_SCENES:
+        from ..datasets.nerf_360_v2 import SubjectLoader
+
+        train = SubjectLoader(subject_id=scene, root_fp=data_root, split=train_split, num_rays=num_rays,
+                              color_bkgd_aug="random", factor=4, device=device)
+        return train, SubjectLoader(subject_id=scene, root_fp=data_root, split="test", factor=4, device=device)
+    from ..datasets.nerf_synthetic import SubjectLoader
+
+    train = SubjectLoader(subject_id=scene, root_fp=data_root, split=train_split, num_rays=num_rays, device=device)
+    return train, SubjectLoader(subject_id=scene, root_fp=data_root, split="test", device=device)
 
 
 def psnr(pred: Tensor, target: Tensor) -> float:

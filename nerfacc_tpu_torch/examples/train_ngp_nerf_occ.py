@@ -2,7 +2,8 @@
 
 Port of ``examples/train_ngp_nerf_occ.py``: the per-scene configuration
 (NeRF-Synthetic, Mip-NeRF 360 unbounded, and the procedural scene when no
-``--data_root`` is given), the NGP field or ``--field tensorf|kplanes``, Adam (eps 1e-15, coupled weight decay) with the
+``--data_root`` is given; a Mip-NeRF 360 scene is read from its COLMAP
+folder by ``nerf_360_v2.SubjectLoader``), the NGP field or ``--field tensorf|kplanes``, Adam (eps 1e-15, coupled weight decay) with the
 JAX example's warm-up and step schedule, Huber loss, the occupancy update
 every 16 steps, the macro-budget escalation, eval with PSNR, SSIM, MS-SSIM
 and LPIPS, and checkpoints.
@@ -10,10 +11,14 @@ and LPIPS, and checkpoints.
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --smoke --device cpu
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --dtype bf16   # on the card
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field tensorf
+    python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --scene garden --data_root <360_v2>
 
 As in the JAX example, the ray count is fixed and the sample capacity is a
-fixed budget (``target_sample_batch_size``).  :func:`train_step` and
-:func:`train` are the loop's own pieces, which other programs call.
+fixed budget (``target_sample_batch_size``), but for the Mip-NeRF 360
+block, whose traversal those fixed shapes starve: there the ray count
+follows upstream nerfacc's dynamic batch (:func:`fit_num_rays`).
+:func:`train_step` and :func:`train` are the loop's own pieces, which other
+programs call.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from .common import (
     Timer,
     eval_metrics,
     render_image_chunked,
+    scene_loaders,
 )
 
 Tensor = torch.Tensor
@@ -48,10 +54,18 @@ OCC_EVERY = 16  # steps between occupancy updates
 WARMUP_STEPS = 256  # updates before this step probe every cell
 MACRO_START, MACRO_CAP = 24, 64  # the macro budget and its escalation cap
 TRUNC_LIMIT = 1e-3  # share of truncated rays that doubles the budget
+INIT_RAYS = 1024  # the dynamic ray count's first (upstream nerfacc's init_batch_size)
+MIN_RAYS = 64  # the fewest rays a step of the dynamic ray count takes
+FILL = 0.8  # the share of the sample capacities the dynamic ray count aims at
 
 
 def build_config(scene: str) -> dict:
-    """The example's per-scene settings (``train_ngp_nerf_occ.py:45-74``)."""
+    """The example's per-scene settings (``train_ngp_nerf_occ.py:45-74``),
+    and for the Mip-NeRF 360 scenes upstream nerfacc's dynamic ray count
+    (``dynamic_rays``, from :data:`INIT_RAYS` up to ``num_rays``; see
+    :func:`fit_num_rays`) with up to ``traversal_capacity`` slots for the
+    traversal and ``target_sample_batch_size`` for the filter's
+    survivors."""
     cfg = dict(
         max_steps=20000,
         num_rays=8192,
@@ -77,6 +91,15 @@ def build_config(scene: str) -> dict:
             alpha_thre=1e-2,
             cone_angle=0.004,
             unbounded=True,
+            # Upstream nerfacc's dynamic ray count, up to num_rays: the JAX
+            # example's fixed 8192 rays ask the traversal for ~500 samples
+            # a ray at the start, and its 2^18 slots then hold the first
+            # ~500 rays' only (ROADMAP Queue 3).  The traversal gets room
+            # for all its samples (at most 2^21 slots) and the filter's
+            # survivors are compacted into the 2^18 slots of the
+            # differentiable pass.
+            dynamic_rays=True,
+            traversal_capacity=1 << 21,
         )
     elif scene in ["materials", "ficus", "drums"]:
         cfg.update(weight_decay=1e-5)
@@ -139,6 +162,8 @@ class Run:
     max_macro: int = MACRO_START
     max_macro_cap: int = MACRO_CAP
     trunc: Optional[Tensor] = None  # the last step's truncated share, on the device
+    sample_counts: Optional[Tensor] = None  # the last step's traversed, visible and unslotted samples, on the device
+    traversal_slots: Optional[int] = None  # the dynamic ray count's traversal capacity
 
     @property
     def render_kwargs(self) -> dict:
@@ -170,16 +195,23 @@ def train_step(run: Run, rays_o: Tensor, rays_d: Tensor, pixels: Tensor, bkgd: T
     """One step: render with the stratified ``jitter`` (``(n_rays,)`` in
     ``[0, 1)``), Huber loss, backward, Adam at the schedule's rate.  Returns
     ``(loss, n_samples, mse, truncated share)``, 0-d tensors on the device
-    (no host read)."""
+    (no host read), and keeps the traversal's and the filter's sample counts
+    and the traversal's samples that found no slot in ``run.sample_counts``.  With ``cfg["dynamic_rays"]`` the traversal
+    has ``cfg["traversal_capacity"]`` slots (``run.traversal_slots`` once
+    :func:`fit_num_rays` has set them) and the filter's survivors are
+    compacted into ``target_sample_batch_size`` (``refilter_capacity``)."""
     lr = run.schedule(updates_done(run.opt))
     for group in run.opt.param_groups:
         group["lr"] = lr
     sigma_fn, rgb_sigma_fn = make_fns(run.field, rays_o, rays_d)
+    cfg = run.cfg
+    slots = cfg["target_sample_batch_size"]
     colors, _, _, n_samp, extras = occgrid_render_rays(
         rgb_sigma_fn, sigma_fn, run.estimator, run.occ_state, rays_o, rays_d,
         render_bkgd=bkgd, stratified=True, jitter=jitter,
-        sample_capacity=run.cfg["target_sample_batch_size"], max_macro_segments=run.max_macro,
-        **run.render_kwargs,
+        sample_capacity=(run.traversal_slots or cfg["traversal_capacity"]) if cfg.get("dynamic_rays") else slots,
+        refilter_capacity=slots if cfg.get("dynamic_rays") else None,
+        max_macro_segments=run.max_macro, **run.render_kwargs,
     )
     loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
     run.opt.zero_grad(set_to_none=True)
@@ -188,7 +220,31 @@ def train_step(run: Run, rays_o: Tensor, rays_d: Tensor, pixels: Tensor, bkgd: T
     with record_function("optimizer"):
         run.opt.step()
     mse = torch.mean((colors.detach() - pixels) ** 2)
+    run.sample_counts = torch.stack([extras["n_traversed"], extras["n_visible"], extras["n_over_capacity"]])
     return loss.detach(), n_samp, mse, extras["macro_truncated_frac"]
+
+
+def fit_num_rays(run: Run, train_ds) -> None:
+    """Upstream nerfacc's dynamic batch on the last step's counts: the ray
+    count whose filter survivors fill :data:`FILL` of
+    ``target_sample_batch_size`` (upstream's ``num_rays *
+    target_sample_batch_size / n_samples``, ``n_samples`` the survivors),
+    between :data:`MIN_RAYS` and ``cfg["num_rays"]``, and fewer where their
+    traversal would pass :data:`FILL` of ``traversal_capacity`` slots;
+    then ``run.traversal_slots``, room for those rays' traversal with the
+    same margin (the traversal of upstream nerfacc has no capacity).  The
+    loop calls it at the occupancy-update cadence, where it reads the
+    device anyway."""
+    cfg = run.cfg
+    traversed, visible = (max(float(v), 1.0) for v in run.sample_counts[:2])
+    n = train_ds.num_rays
+    per_ray = traversed / n
+    slots_max = cfg["traversal_capacity"]
+    rays = min(FILL * cfg["target_sample_batch_size"] / visible * n, FILL * slots_max / per_ray)
+    rays = max(MIN_RAYS, min(cfg["num_rays"], int(rays)))
+    slots = -(-int(per_ray * rays / FILL) // 1024) * 1024
+    run.traversal_slots = max(cfg["target_sample_batch_size"], min(slots_max, slots))
+    train_ds.update_num_rays(rays)
 
 
 def occ_update(run: Run, warmup: bool, draws=None) -> None:
@@ -214,9 +270,10 @@ def train(run: Run, train_ds: SubjectLoader, until: int, *, log_every: int = 0,
     every 16 steps (warm-up below step 256), and at that cadence, the only
     host read of the loop, the previous step's truncated share, which
     doubles the macro budget up to ``run.max_macro_cap`` when it passes
-    0.1%.  ``jitter(step)`` and ``draws(step)`` replace the run generator's
-    draws.  Returns the steps' losses and kept-sample counts (lists of 0-d
-    device tensors)."""
+    0.1%; with ``cfg["dynamic_rays"]``, :func:`fit_num_rays` there too.
+    ``jitter(step)`` and ``draws(step)`` replace the run generator's draws.
+    Returns the steps' losses and kept-sample counts (lists of 0-d device
+    tensors)."""
     losses: List[Tensor] = []
     n_samples: List[Tensor] = []
     timer = Timer()
@@ -231,6 +288,8 @@ def train(run: Run, train_ds: SubjectLoader, until: int, *, log_every: int = 0,
                     run.max_macro = min(run.max_macro_cap, run.max_macro * 2)
                     print(f"step={step}: {trunc_frac:.1%} of rays macro-truncated; raising "
                           f"max_macro_segments to {run.max_macro}", flush=True)
+            if run.cfg.get("dynamic_rays") and run.sample_counts is not None:
+                fit_num_rays(run, train_ds)
         with record_function("fetch"):
             batch = train_ds[step % len(train_ds)]
         rays = batch["rays"]
@@ -255,16 +314,54 @@ def train(run: Run, train_ds: SubjectLoader, until: int, *, log_every: int = 0,
 @torch.no_grad()
 def render_image(run: Run, rays, chunk: int) -> Tensor:
     """An eval image (``train_ngp_nerf_occ.py:304-322``): white background,
-    ``chunk * 64`` sample slots a chunk, no jitter."""
+    ``chunk * 64`` sample slots a chunk, no jitter, the run's macro budget
+    (the JAX example's eval keeps the initial 24 segments after training
+    raised it, and cuts the rays the training traversed further).  With
+    ``cfg["dynamic_rays"]`` every sample is rendered, as upstream nerfacc's
+    eval, which has no capacity, renders them: a chunk whose traversal finds
+    more samples than its slots hold renders again with room for 1.25 times
+    them (or twice the slots, if more), and the filter's survivors are
+    compacted into ``chunk * 64`` slots for the field's colour pass (more
+    where more survive); past ``cfg["traversal_capacity"]`` slots the chunk
+    is rendered in parts instead, and the next chunks start with the slots
+    and parts that sufficed."""
     white = torch.ones(3, device=rays.origins.device)
+    dynamic = run.cfg.get("dynamic_rays")
+    capacity = refilter = chunk * 64
+    parts = 1
+
+    def render_part(o, d):
+        """The colours of rays ``o, d``, or None where they need more than
+        the traversal's most slots."""
+        nonlocal capacity, refilter
+        sigma_fn, rgb_sigma_fn = make_fns(run.field, o, d)
+        while True:
+            colors, _, _, _, extras = occgrid_render_rays(
+                rgb_sigma_fn, sigma_fn, run.estimator, run.occ_state, o, d, render_bkgd=white,
+                sample_capacity=capacity, refilter_capacity=refilter if dynamic else None,
+                max_macro_segments=run.max_macro, **run.render_kwargs,
+            )
+            if not dynamic:
+                return colors
+            over, visible = int(extras["n_over_capacity"]), int(extras["n_visible"])
+            if over == 0 and visible <= refilter:
+                return colors
+            if over:
+                capacity = max(2 * capacity, -(-int(1.25 * int(extras["n_traversed"])) // 1024) * 1024)
+            if visible > refilter:
+                refilter = -(-int(1.25 * visible) // 1024) * 1024
+            most = run.cfg["traversal_capacity"]
+            if capacity > most or refilter > most:
+                capacity, refilter = min(capacity, most), min(refilter, most)
+                return None
 
     def render(o, d):
-        sigma_fn, rgb_sigma_fn = make_fns(run.field, o, d)
-        colors, _, _, _, _ = occgrid_render_rays(
-            rgb_sigma_fn, sigma_fn, run.estimator, run.occ_state, o, d,
-            render_bkgd=white, sample_capacity=chunk * 64, **run.render_kwargs,
-        )
-        return colors
+        nonlocal parts
+        while True:
+            pieces = [render_part(oo, dd) for oo, dd in zip(o.chunk(parts), d.chunk(parts))]
+            if all(p is not None for p in pieces):
+                return torch.cat(pieces)
+            parts *= 2
 
     return render_image_chunked(render, rays, chunk=chunk)
 
@@ -392,14 +489,13 @@ def setup(args: argparse.Namespace):
         )
         cfg["near_plane"], cfg["far_plane"] = train_ds.near, train_ds.far
     else:
-        train_ds = SubjectLoader(subject_id=args.scene, root_fp=args.data_root, split=args.train_split,
-                                 num_rays=cfg["num_rays"], device=device)
-        test_ds = SubjectLoader(subject_id=args.scene, root_fp=args.data_root, split="test", device=device)
+        first_rays = min(INIT_RAYS, cfg["num_rays"]) if cfg.get("dynamic_rays") else cfg["num_rays"]
+        train_ds, test_ds = scene_loaders(args.scene, args.data_root, args.train_split, first_rays, device)
         if args.max_steps:
             cfg["max_steps"] = args.max_steps
     if args.num_rays:
         cfg["num_rays"] = args.num_rays
-        train_ds.update_num_rays(args.num_rays)
+        train_ds.update_num_rays(min(args.num_rays, INIT_RAYS) if cfg.get("dynamic_rays") else args.num_rays)
 
     estimator = OccGridEstimator(roi_aabb=cfg["aabb"], resolution=cfg["grid_resolution"], levels=cfg["grid_nlvl"])
     field = make_field(cfg, estimator, args.encoder, args.field, args.levels, args.feats, args.log2t, args.dtype,

@@ -4,8 +4,11 @@ Port of ``examples/train_ngp_nerf_prop.py``: proposal ``NGPDensityField``
 levels and the NGP radiance field, the annealed proposal cadence, two Adams
 (lr 1e-2, eps 1e-15), Huber loss plus the proposal loss, and an eval in
 chunks with PSNR and LPIPS.  It saves no checkpoint, as the JAX example.
+A Mip-NeRF 360 scene is read from its COLMAP folder by
+``nerf_360_v2.SubjectLoader``.
 
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_prop --smoke --device cpu
+    python -m nerfacc_tpu_torch.examples.train_ngp_nerf_prop --scene garden --data_root <360_v2>
 """
 
 from __future__ import annotations
@@ -24,7 +27,14 @@ from ..estimators.prop_net import PropNetEstimator, get_proposal_requires_grad_f
 from ..models.ngp import NGPDensityField, NGPRadianceField
 from ..rendering import propnet_render_rays
 from ..utils.lpips import lpips
-from .common import MIPNERF360_UNBOUNDED_SCENES, NERF_SYNTHETIC_SCENES, Timer, psnr, render_image_chunked
+from .common import (
+    MIPNERF360_UNBOUNDED_SCENES,
+    NERF_SYNTHETIC_SCENES,
+    Timer,
+    psnr,
+    render_image_chunked,
+    scene_loaders,
+)
 
 Tensor = torch.Tensor
 
@@ -132,9 +142,7 @@ def setup(args: argparse.Namespace):
         max_steps = args.max_steps or (200 if args.smoke else 4000)
         num_samples, prop_samples = (32, (64,)) if args.smoke else (48, (128,))
     else:
-        train_ds = SubjectLoader(subject_id=args.scene, root_fp=args.data_root, split=args.train_split,
-                                 num_rays=4096, device=device)
-        test_ds = SubjectLoader(subject_id=args.scene, root_fp=args.data_root, split="test", device=device)
+        train_ds, test_ds = scene_loaders(args.scene, args.data_root, args.train_split, 4096, device)
         max_steps = args.max_steps or 20000
 
     gen = torch.Generator().manual_seed(42)

@@ -94,8 +94,12 @@ def occgrid_render_rays(
 
     Returns ``(colors (n,3), opacities (n,1), depths (n,1),
     n_rendering_samples, extras)``, differentiable in the field's
-    parameters; ``extras`` adds ``kept``, ``ray_indices`` and
-    ``macro_truncated_frac`` to :func:`~nerfacc_tpu_torch.volrend.rendering`'s.
+    parameters; ``extras`` adds ``kept``, ``ray_indices``,
+    ``macro_truncated_frac``, ``n_traversed`` (the samples the traversal
+    found within each ray's budget), ``n_over_capacity`` (those of them that
+    found no slot in ``sample_capacity``: the last rays' samples) and
+    ``n_visible`` (the samples the visibility filter kept, which may exceed
+    ``refilter_capacity``) to :func:`~nerfacc_tpu_torch.volrend.rendering`'s.
     With ``stratified``, each ray's near plane moves by ``jitter *
     render_step_size`` (``jitter`` an ``(n_rays,)`` tensor in ``[0, 1)``, or
     drawn from ``generator``).
@@ -128,6 +132,9 @@ def occgrid_render_rays(
         )
     ray_indices, t_starts, t_ends, kept = cs.ray_indices, cs.t_starts, cs.t_ends, cs.kept
     seg_bounds = (cs.seg_starts, cs.seg_counts)
+    n_traversed = cs.num_valid.sum()
+    over_capacity = n_traversed - kept.sum()
+    visible = None
     if sigma_fn is not None and (alpha_thre > 0.0 or refilter_capacity):
         with record_function("visibility"), torch.no_grad():
             sigmas = torch.where(kept, sigma_fn(t_starts, t_ends, ray_indices), 0.0)
@@ -137,6 +144,7 @@ def occgrid_render_rays(
                 alpha_thre=state.occs.mean().clamp(max=alpha_thre),
             )
             kept = kept & masks
+            visible = kept.sum()
             t_ends = torch.where(kept, t_ends, t_starts)
             if refilter_capacity:
                 # The samples are sorted by ray, so a survivor's slot is the
@@ -147,9 +155,8 @@ def occgrid_render_rays(
                 src = torch.zeros(refilter_capacity + 1, dtype=torch.int64, device=kept.device)
                 src = src.scatter_(0, slot, torch.arange(kept.shape[0], device=kept.device))
                 src = src[:refilter_capacity]
-                total = kept.sum()
                 ray_indices, t_starts, t_ends = ray_indices[src], t_starts[src], t_ends[src]
-                kept = torch.arange(refilter_capacity, device=kept.device) < total
+                kept = torch.arange(refilter_capacity, device=kept.device) < visible
                 t_ends = torch.where(kept, t_ends, t_starts)
                 seg_bounds = None
     # The field runs in its own range, before rendering, so that a profile
@@ -176,6 +183,9 @@ def occgrid_render_rays(
     extras["kept"] = kept
     extras["ray_indices"] = ray_indices
     extras["macro_truncated_frac"] = cs.macro_truncated.float().mean()
+    extras["n_traversed"] = n_traversed
+    extras["n_over_capacity"] = over_capacity
+    extras["n_visible"] = kept.sum() if visible is None else visible
     return colors, opacities, depths, kept.sum(), extras
 
 

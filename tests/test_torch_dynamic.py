@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from nerfacc_tpu.datasets import procedural as jproc
+import nerfacc_tpu.datasets._native as jnative
 from nerfacc_tpu.datasets.dnerf_synthetic import SubjectLoader as JLoader
 from nerfacc_tpu_torch.datasets import procedural as tproc
 from nerfacc_tpu_torch.datasets.dnerf_synthetic import SubjectLoader as TLoader
@@ -89,7 +90,11 @@ def _write_scene(root, rng):
 
 
 @pytest.mark.parametrize("split", ["train", "trainval", "test"])
-def test_dnerf_loader_matches_jax_on_a_scene_on_disk(tmp_path, split):
+def test_dnerf_loader_matches_jax_on_a_scene_on_disk(tmp_path, split, monkeypatch):
+    # Both loaders on their numpy path (tests/test_torch_native.py holds the
+    # native sampler's batches).
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(TLoader, "NATIVE_SAMPLER", False)
     _write_scene(tmp_path, np.random.default_rng(5))
     num_rays = None if split == "test" else 40
     kw = dict(subject_id="tiny", root_fp=str(tmp_path), split=split, num_rays=num_rays)

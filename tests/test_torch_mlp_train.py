@@ -21,6 +21,7 @@ import optax
 import pytest
 import torch
 
+import nerfacc_tpu.datasets._native as jnative
 from nerfacc_tpu.datasets.procedural import make_loaders as j_make_loaders
 from nerfacc_tpu.estimators.occ_grid import OccGridEstimator as JEstimator
 from nerfacc_tpu.models import mlp as jmlp
@@ -28,6 +29,7 @@ from nerfacc_tpu.rendering import gather_ray_od as j_gather_ray_od
 from nerfacc_tpu.rendering import occgrid_render_rays as j_render
 from nerfacc_tpu_torch.convert import mlp_field_from_jax, occ_state_from_jax
 from nerfacc_tpu_torch.datasets import procedural as tproc
+from nerfacc_tpu_torch.datasets.nerf_synthetic import SubjectLoader as TLoader
 from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator as TEstimator
 from nerfacc_tpu_torch.examples import common
 from nerfacc_tpu_torch.examples import train_mlp_nerf as mlp_cli
@@ -283,6 +285,10 @@ def _jax_loop(train_ds, test_ds):
 
 
 def test_train_loop_matches_the_jax_example_over_16_steps(monkeypatch):
+    # Both loaders on their numpy path, so both loops see the same batches
+    # (tests/test_torch_native.py holds the native sampler's).
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(TLoader, "NATIVE_SAMPLER", False)
     j_train, j_test = j_make_loaders(num_rays=128, width=SIZE, height=SIZE, n_train=12, n_test=1)
     params0, losses_j, keys, psnr_j, occ_j = _jax_loop(j_train, j_test)
 

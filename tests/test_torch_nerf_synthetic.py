@@ -1,9 +1,9 @@
 """The NeRF-Synthetic loader and the PNG reader and writer of the port.
 
 ``SubjectLoader`` against ``nerfacc_tpu.datasets.nerf_synthetic`` on the
-same images and seed: the port takes the JAX loader's numpy path (the
-native sampler is not ported), so the JAX side is held to that path and the
-batches must be the same numbers.  The PNG reader is held against
+same images and seed, both loaders pinned to their numpy path (the native
+sampler's batches are held in ``tests/test_torch_native.py``): the batches
+must be the same numbers.  The PNG reader is held against
 ``imageio`` on the committed fixture, on images that ``imageio`` writes
 (its encoder picks a filter per row) and on rows encoded here with each of
 the five filters.
@@ -29,8 +29,10 @@ FIXTURE_PNGS = [os.path.join(ROOT, "lego", p) for p in ("train/r_0.png", "train/
 
 @pytest.fixture
 def numpy_path(monkeypatch):
-    """The JAX loader's numpy path, wherever the native library is built."""
+    """Both loaders' numpy path: the JAX loader's wherever its native
+    library is built, the port's instead of its native sampler."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(TLoader, "NATIVE_SAMPLER", False)
 
 
 def _arrays(seed=0, n=3, h=12, w=10):

@@ -32,6 +32,10 @@ def test_no_file_imports_jax_or_the_jax_package():
         REPO / "chip_smoke.py", REPO / "kernel_variants.py", REPO / "tests" / "test_torch_cuda.py",
     ]
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    for new in ("datasets/colmap.py", "datasets/jpeg.py", "datasets/nerf_360_v2.py", "datasets/_native.py",
+                "utils/profiler.py", "scripts/run_profiler.py", "scripts/capture_trace.py"):
+        assert f"nerfacc_tpu_torch/{new}" in names, new
     bad = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN)
         for f in files
@@ -107,6 +111,16 @@ def test_the_port_exports_the_jax_package_public_names():
     missing = [n for n in want if not hasattr(nerfacc_tpu_torch, n)]
     assert missing == []
     assert nerfacc_tpu_torch.inclusive_sum.__module__ == "nerfacc_tpu_torch.scan"
+
+
+def test_the_port_utils_export_the_jax_package_utils_names():
+    want = _all_names(REPO / "nerfacc_tpu" / "utils" / "__init__.py")
+    assert "time_jitted" in want and "trace" in want
+    import nerfacc_tpu_torch.utils as utils
+
+    assert utils.__all__ == want
+    assert [n for n in want if not hasattr(utils, n)] == []
+    assert utils.trace.__module__ == utils.time_jitted.__module__ == "nerfacc_tpu_torch.utils.profiler"
 
 
 def _variants_match_their_source(monkeypatch, kernel, n_variants):
