@@ -7,7 +7,7 @@
 Phases (any failure exits non-zero; ``--phases`` runs a comma-separated
 subset, phase 1 always, and prints the kernel table only when every phase
 ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
-20 none):
+21 none):
 1. card: name and power limit; build every kernel from ``nerfacc_tpu_torch/csrc``;
    what ``ptxas -v`` says of K1, K2, K3, K4 and K6 (registers, shared
    memory, spills).
@@ -191,6 +191,21 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    at the bench configuration (a time for every stage) and ``...
    capture_trace`` over 3 steps and one update (its table names K1, K2 and
    K3).
+21. ``nerfacc_tpu_torch.parallel``: (a) a world of one over NCCL at phase
+   6's configuration: one parallel step against phase 6's ``train_step``
+   and one parallel update against ``_update`` on the same weights,
+   jitter, batch and draws, then 3 warm-up and 30 timed steps and 8 timed
+   updates (step and update ms beside phase 6's, samples/s, peak memory, the
+   gradient buffer's bytes), a profile with the ``all_reduce``'s ms, K1, K2
+   and K3 on the path's own inputs, and the 800x800 view through
+   ``make_parallel_test_renderer`` against ``occgrid_render_rays_test``,
+   with K1, K2 and K3 counted over the steps, updates and view; (b) two
+   processes on the one card over gloo (this script run with
+   ``--parallel-worker RANK PORT DIR``), each holding half of 1024 rays at
+   full field width in float32: the 2-rank step, update and render against
+   one process on the union of the rays and of the draws (a correctness
+   run, not a scaling one), with K1, K3 and K4-w3 counted in each rank's
+   step, update and render and held on rank 0's own inputs.
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``.
 """
 
@@ -1024,10 +1039,12 @@ def train_full_width(dev, field_cfg, grad_kernel, grad_label, profile_name, chec
 WIDE_TOL = 3e-3
 
 
-def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wide=None) -> None:
-    """One train step on the card (``a``) against the CPU (``b``), each a
-    dict of the kept-sample count ``n``, the ``loss``, the ``grads`` and the
-    ``params`` after Adam: equal counts, the loss within ``tol`` relative,
+def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wide=None,
+              sides="card vs CPU") -> None:
+    """One train step on the card (``a``) against the CPU (``b``), or
+    another pair that ``sides`` names, each a dict of the kept-sample count
+    ``n``, the ``loss``, the ``grads`` and the ``params`` after Adam (and
+    the CPU step's seconds ``s``, printed where given): equal counts, the loss within ``tol`` relative,
     every hash table's gradient within ``tol`` and the others within ``mlp_tol`` of
     their largest value (``WIDE_TOL`` at the entries that a mask in ``wide``
     marks), the parameters held where the gradients' signs
@@ -1036,7 +1053,7 @@ def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wi
     ``lr * g / (|g| + eps)``, which follows ``g`` closely only there; with a
     coupled weight decay ``g`` is ``g + wd p``, given as ``adam_grads``)."""
     if a["n"] != b["n"]:
-        fail(f"card vs CPU ({label}): kept samples {a['n']} vs {b['n']}")
+        fail(f"{sides} ({label}): kept samples {a['n']} vs {b['n']}")
     loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
     worst = {}
     for k, g_cpu in b["grads"].items():
@@ -1061,20 +1078,21 @@ def hold_step(label, a, b, tol, mlp_tol, what, adam_eps=1e-15, held_tols=0.0, wi
         p_err = float(p_diff.max())
         if not bool((err <= g_tol).all()) or not bool((g_cpu.abs() <= g_tol)[~agree].all()) or p_err > 1e-6:
             i = int(p_diff.argmax())
-            fail(f"card vs CPU ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}"
+            fail(f"{sides} ({label}): {k} gradient rel err {worst[k]:.3e} (tol {k_tol}"
                  + (f", {WIDE_TOL} at {int(wide[k].sum())} entries" if wide is not None and k in wide else "")
                  + f"), params after Adam err {p_err:.3e} (there: g {float(g_gpu.flatten()[i]):.6e} card, "
                  f"{float(g_cpu.flatten()[i]):.6e} CPU; Adam's g {float(s_gpu.flatten()[i]):.6e}, "
                  f"{float(s_cpu.flatten()[i]):.6e})")
     table = f"table gradient rel err {worst['encoder.table']:.2e} (tol {tol}), " if "encoder.table" in worst else ""
     print(
-        f"card vs CPU train step ({label}, {what}): samples "
+        f"{sides} train step ({label}, {what}): samples "
         f"{a['n']} = {b['n']}, loss {a['loss']:.7f} vs {b['loss']:.7f} (rel err {loss_err:.2e}), "
-        f"{table}worst over parameters {max(worst.values()):.2e} (tol {mlp_tol}); CPU step {b['s']:.1f} s",
+        f"{table}worst over parameters {max(worst.values()):.2e} (tol {mlp_tol})"
+        + (f"; CPU step {b['s']:.1f} s" if "s" in b else ""),
         flush=True,
     )
     if loss_err > tol:
-        fail(f"card vs CPU ({label}): loss rel err {loss_err} > {tol}")
+        fail(f"{sides} ({label}): loss rel err {loss_err} > {tol}")
 
 
 def ngp_field(cfg: dict, compute_dtype, device):
@@ -2516,31 +2534,15 @@ def serve(dev, est, state, crop: bool) -> float:
     on that path, and a profile of every 8th chunk; then, if ``crop``, phase
     4: a 64x64 crop on the card against the CPU.  Returns the view's
     rays/s."""
-    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
-    from nerfacc_tpu_torch.datasets.utils import generate_rays
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
     from nerfacc_tpu_torch.ops.occ_query import occupancy_query
-    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays_test
+    from nerfacc_tpu_torch.rendering import occgrid_render_rays_test
 
     gen = torch.Generator().manual_seed(0)
     field = NGPRadianceField(aabb=AABB, device=dev, generator=gen, **FIELD_CFG)
     field.eval()
-
-    def builder(ro, rd, fld=field):
-        def rgb_sigma_fn(ts, te, ri):
-            o, dd = gather_ray_od(ro, rd, ri)
-            x = o + ((ts + te) / 2)[:, None] * dd
-            rgb, sigma = fld(x, dd)
-            return rgb, sigma[..., 0]
-
-        return rgb_sigma_fn
-
-    c2w = pose_spherical(math.radians(-30.0), math.radians(-30.0), 4.0)[:3, :4]
-    K = np.array([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]], np.float32)
-    xs, ys = np.meshgrid(np.arange(WIDTH), np.arange(HEIGHT), indexing="xy")
-    rays = generate_rays(xs, ys, K, c2w, device=dev)
-    o_all = rays.origins.reshape(-1, 3)
-    d_all = rays.viewdirs.reshape(-1, 3)
+    builder = field_builder(field)
+    o_all, d_all = view_rays(dev)
     bkgd = torch.ones(3, device=dev)
 
     def render(o, d):
@@ -2602,8 +2604,8 @@ def serve(dev, est, state, crop: bool) -> float:
     # Phase 4: card against CPU on a 64x64 crop.
     r0 = (HEIGHT - CROP) // 2
     c0 = (WIDTH - CROP) // 2
-    crop_o = rays.origins[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
-    crop_d = rays.viewdirs[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
+    crop_o = o_all.view(HEIGHT, WIDTH, 3)[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
+    crop_d = d_all.view(HEIGHT, WIDTH, 3)[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
     rgb_gpu, opa_gpu, dep_gpu, n_gpu = occgrid_render_rays_test(
         builder, est, state, crop_o, crop_d, render_bkgd=bkgd, **RENDER_KW
     )
@@ -2613,7 +2615,7 @@ def serve(dev, est, state, crop: bool) -> float:
     state_cpu = est.set_binaries(est.init(cpu), state.binaries.cpu())
     t0 = time.perf_counter()
     rgb_cpu, opa_cpu, dep_cpu, n_cpu = occgrid_render_rays_test(
-        lambda ro, rd: builder(ro, rd, fld=field_cpu), est, state_cpu,
+        field_builder(field_cpu), est, state_cpu,
         crop_o.cpu(), crop_d.cpu(), render_bkgd=bkgd.cpu(), **RENDER_KW,
     )
     print(f"CPU crop rendered in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3747,7 +3749,492 @@ def profiler_tools() -> dict:
     return dict(stages=stages)
 
 
-ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20)
+# Phase 21: nerfacc_tpu_torch.parallel.  (a) A world of one over NCCL at
+# phase 6's configuration (bench.py's full width: 16384 rays, 2^19 slots,
+# the res-128 shell, the fused L4 x F16 encoder in bf16, macro budget 4).
+# (b) Two processes on the one card over gloo (NCCL refuses two ranks on one
+# device), each holding half of 1024 rays at the full field width in float32,
+# as a correctness run: 2^16 slots a rank, not phase 8's 2^15, because 512
+# rays take ~37,000 samples (72 a ray) and a shard that overflows keeps other
+# samples than one process on the union of the rays would.
+PAR_B_RAYS, PAR_B_CAPACITY, PAR_B_RENDER_RAYS = 1024, 1 << 16, 4096
+# The parallel steps against one process's (phase 21a: phase 6's
+# train_step on the same weights, jitter and batch; 21b: one process on the
+# union of the rays, float32 sums of ~37,000 samples' terms in another
+# grouping): the loss, and every gradient relative to its largest entry,
+# within 1e-5 (2.24e-07 and 3.27e-07 measured on an H100); the parameters
+# after Adam within 1e-6 where the gradients' signs agree.  The views of
+# the parallel renderer against occgrid_render_rays_test within 1e-5 (the
+# same rounds; index_add_'s atomics order each ray's sums; 1.8e-07
+# measured).
+PAR_TOL, PAR_RENDER_ATOL = 1e-5, 1e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def step_record(field, loss, n_samp) -> dict:
+    """A step's kept samples, loss, gradients and parameters after Adam."""
+    return dict(
+        n=int(n_samp), loss=float(loss),
+        grads={k: p.grad.detach().to("cpu", torch.float32, copy=True) for k, p in field.named_parameters()},
+        params={k: p.detach().to("cpu", copy=True) for k, p in field.named_parameters()},
+    )
+
+
+def same_grid(label, a, b) -> None:
+    """Two occupancy states: ``occs``, the binaries and every derived grid equal."""
+    diffs = {k: int((getattr(a, k) != getattr(b, k)).sum())
+             for k in ("occs", "binaries", "binaries_packed", "skip_grid", "skip_packed")}
+    print(f"{label}: entries that differ {diffs}, occupied {int(a.binaries.sum())}", flush=True)
+    if any(diffs.values()):
+        fail(f"{label}: the grids differ")
+
+
+def view_rays(dev) -> tuple:
+    """Phase 3's 800x800 view: its origins and directions, flattened."""
+    from nerfacc_tpu_torch.datasets.procedural import pose_spherical
+    from nerfacc_tpu_torch.datasets.utils import generate_rays
+
+    c2w = pose_spherical(math.radians(-30.0), math.radians(-30.0), 4.0)[:3, :4]
+    K = np.array([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]], np.float32)
+    xs, ys = np.meshgrid(np.arange(WIDTH), np.arange(HEIGHT), indexing="xy")
+    rays = generate_rays(xs, ys, K, c2w, device=dev)
+    return rays.origins.reshape(-1, 3).contiguous(), rays.viewdirs.reshape(-1, 3).contiguous()
+
+
+def field_builder(field):
+    """``occgrid_render_rays_test``'s builder for ``field``."""
+    from nerfacc_tpu_torch.rendering import gather_ray_od
+
+    def builder(ro, rd):
+        def rgb_sigma_fn(ts, te, ri):
+            o, d = gather_ray_od(ro, rd, ri)
+            rgb, sigma = field(o + ((ts + te) / 2)[:, None] * d, d)
+            return rgb, sigma[..., 0]
+
+        return rgb_sigma_fn
+
+    return builder
+
+
+def same_view(label, got, want, atol) -> float:
+    """Two renders ``(rgb, opacity, depth)``: rgb and opacity within ``atol``,
+    depth within ``atol`` relative.  Returns the largest rgb difference."""
+    errs = [float((a - b).abs().max()) for a, b in zip(got[:2], want[:2])]
+    d_err = float(((got[2] - want[2]).abs() / want[2].abs().clamp(min=1.0)).max())
+    print(f"{label}: rgb max abs err {errs[0]:.3e}, opacity {errs[1]:.3e}, depth rel {d_err:.3e} (tol {atol})",
+          flush=True)
+    if max(errs + [d_err]) > atol:
+        fail(f"{label}: the views differ")
+    return errs[0]
+
+
+def parallel_world_of_one(dev, card_line, phase6=None) -> dict:
+    """Phase 21a: ``nerfacc_tpu_torch.parallel`` over NCCL in a world of one
+    at phase 6's configuration: one parallel step against phase 6's
+    ``train_step`` and one parallel update against ``_update`` (same
+    weights, jitter, batch and draws), then 3 warm-up and 30 timed steps and
+    8 timed updates (step and update ms beside phase 6's, samples/s, peak
+    memory, the gradient buffer's bytes), a profile window with the
+    ``all_reduce``'s ms, K1, K2 and K3 on the path's own inputs, and the
+    800x800 view through ``make_parallel_test_renderer`` against
+    ``occgrid_render_rays_test``; K1, K2 and K3 counted over the timed
+    steps, updates and view.  Returns the launches and the kernels' numbers
+    for the kernel table."""
+    import os
+
+    import torch.distributed as dist
+
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, table_grad_u10
+    from nerfacc_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, make_parallel_occ_update, make_parallel_test_renderer,
+        make_parallel_train_step, replicate, shard_rays,
+    )
+    from nerfacc_tpu_torch.rendering import occgrid_render_rays_test
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # a world of one needs no network
+    if initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl") != (0, 1):
+        fail("parallel: the NCCL world of one did not join as rank 0 of 1")
+    if dist.get_backend() != "nccl":
+        fail(f"parallel: joined over {dist.get_backend()}, not NCCL")
+    mesh = make_mesh(device=dev)
+    bkgd = torch.ones(3, device=dev)
+    jitter = torch.rand((TRAIN_RAYS,), generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+    draws = None
+    records, grids = [], []
+    for parallel in (True, False):
+        est, state, field, opt, (rays_o, rays_d), pixels = bench_setup(dev, TRAIN_FIELD_CFG, torch.bfloat16)
+        if draws is None:
+            draws = est.make_draws(10**9, torch.Generator(device=dev).manual_seed(5), device=dev)
+        if parallel:
+            replicate(field, mesh)
+            replicate(opt, mesh)
+            state = replicate(state, mesh)
+            o, d, px = shard_rays((rays_o, rays_d, pixels), mesh)
+            step = make_parallel_train_step(field, est, opt, mesh, render_step_size=STEP, near_plane=0.0,
+                                            sample_capacity_per_shard=TRAIN_CAPACITY, max_macro_segments=TRAIN_MACRO)
+            update = make_parallel_occ_update(field, est, mesh, render_step_size=STEP)
+            grids.append(update(state, draws=draws))
+            loss, n_samp = step(state, o, d, px, bkgd, jitter=jitter)
+            par = (est, state, field, opt, o, d, px, step, update)
+        else:
+            grids.append(occ_update(est, state, field, draws=draws))
+            loss, n_samp, _ = train_step(field, opt, est, state, rays_o, rays_d, pixels, jitter, TRAIN_CAPACITY)
+        records.append(step_record(field, loss, n_samp))
+    hold_step("NCCL, world of 1", *records, PAR_TOL, PAR_TOL, f"{TRAIN_RAYS} rays, capacity {TRAIN_CAPACITY}",
+              sides="parallel vs phase 6's")
+    same_grid("parallel update (NCCL, world of 1) vs _update on the same draws", *grids)
+    same_grid("parallel update's derived grids vs set_binaries of its binaries", grids[0],
+              par[0].set_binaries(grids[0], grids[0].binaries))
+    del records, grids
+    est, state, field, opt, o, d, px, step, update = par
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one_step():
+        return step(state, o, d, px, bkgd, jitter=torch.rand((TRAIN_RAYS,), generator=gen, device=dev))
+
+    def one_update():
+        return update(state)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    occupancy_query.launches = cell_max.launches = table_grad_u10.launches = 0
+    losses = [one_step()[0] for _ in range(3)]
+    one_update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_samps = []
+    for _ in range(TRAIN_ITERS):
+        loss, n_samp = one_step()
+        losses.append(loss)
+        n_samps.append(n_samp)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_ITERS
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_UPDATES):
+        new_state = one_update()
+    torch.cuda.synchronize()
+    update_s = (time.perf_counter() - t0) / TRAIN_UPDATES
+    launches = {"K1": occupancy_query.launches, "K2": table_grad_u10.launches, "K3": cell_max.launches}
+    total = int(torch.stack(n_samps).sum())
+    sps = total / (TRAIN_ITERS * step_s + TRAIN_ITERS / 16.0 * update_s)
+    peak = torch.cuda.max_memory_allocated()
+    grad_bytes = 4 * (sum(p.numel() for p in field.parameters()) + 3)
+    p6 = ""
+    if phase6:
+        p6 = f" (phase 6: step {phase6['step_ms']:.2f} ms, update {phase6['update_ms']:.2f} ms, {phase6['sps']:.1f} samples/s)"
+    print(f"parallel train (NCCL, world of 1, {card_line}): step {step_s * 1e3:.2f} ms, occupancy update "
+          f"{update_s * 1e3:.2f} ms{p6}, {sps:.1f} samples/s ({total} samples in {TRAIN_ITERS} steps), "
+          f"launches {launches}, max_memory_allocated {peak} B, gradient buffer {grad_bytes} B, "
+          f"loss first {float(losses[0]):.6f} last {float(losses[-1]):.6f}, occupied after an update "
+          f"{int(new_state.binaries.sum())}", flush=True)
+    if not all(math.isfinite(float(x)) for x in losses):
+        fail("parallel train: a loss is not finite")
+    if launches["K1"] <= 0 or launches["K2"] < TRAIN_ITERS + 3 or launches["K3"] < TRAIN_UPDATES + 1:
+        fail(f"parallel train: kernels launched too few times on the path: {launches}")
+
+    def steps_and_update():
+        for _ in range(3):
+            one_step()
+        one_update()
+
+    prof = profile_window(
+        steps_and_update,
+        ("traverse_and_compact", "field_forward", "gather_combine", "rendering", "backward", "table_grad",
+         "all_reduce", "optimizer", "occ_update"),
+        "parallel train (NCCL, world of 1; 3 steps and 1 update)", "profile_train_parallel.txt",
+    )
+    nccl = {k: v for k, v in prof["kernels"].items() if "nccl" in k.lower()}
+    ar_ms, ar_host_ms = prof["stages"]["all_reduce"], prof["host"]["all_reduce"]
+    print(f"parallel all_reduce (4 in the window: 3 steps' gradients of {grad_bytes} B, one update's two merges): "
+          f"device {ar_ms:.4f} ms in its range, host {ar_host_ms:.3f} ms traced; NCCL kernels {nccl}", flush=True)
+    k1 = k1_on_train_inputs(one_step, state)
+    k2 = grad_kernel_on_step_inputs("K2", "table_grad_u10", one_step, "one parallel step's inputs")
+    k3 = k3_on_update_inputs(one_update, dev)
+
+    # The 800x800 view through the parallel renderer and the single-process one.
+    field.eval()
+    o_view, d_view = view_rays(dev)
+    render = make_parallel_test_renderer(field, est, mesh, **RENDER_KW)
+    torch.cuda.synchronize()
+    occupancy_query.launches = cell_max.launches = table_grad_u10.launches = 0
+    t0 = time.perf_counter()
+    rgb, opacity, depth, rounds = render(new_state, o_view, d_view, render_bkgd=bkgd)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = {"K1": occupancy_query.launches, "K2": table_grad_u10.launches, "K3": cell_max.launches}
+    if render_launches["K1"] <= 0 or render_launches["K2"] or render_launches["K3"]:
+        fail(f"parallel render: expected K1 launches and no other, saw {render_launches}")
+    launches["K1"] += render_launches["K1"]
+    t0 = time.perf_counter()
+    want = occgrid_render_rays_test(field_builder(field), est, new_state, o_view, d_view, render_bkgd=bkgd,
+                                    **RENDER_KW)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    print(f"parallel render (NCCL, world of 1): 800x800 in {rounds} rounds, {render_s:.3f} s = "
+          f"{o_view.shape[0] / render_s:.1f} rays/s (occgrid_render_rays_test {single_s:.3f} s), "
+          f"mean opacity {float(opacity.mean()):.4f}, K1 launches {render_launches['K1']} "
+          f"(the path's launches, steps, updates and render: {launches})", flush=True)
+    same_view("parallel render vs occgrid_render_rays_test", (rgb, opacity, depth), want[:3], PAR_RENDER_ATOL)
+    if not (bool(torch.isfinite(rgb).all()) and rounds >= 1):
+        fail("parallel render: not finite, or no round")
+    dist.destroy_process_group()
+    print(f"phase 21a took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, k1=k1, k2=k2, k3=k3, step_ms=step_s * 1e3, update_ms=update_s * 1e3, sps=sps,
+                render_rays_s=o_view.shape[0] / render_s, rounds=rounds, all_reduce_ms=ar_ms,
+                all_reduce_host_ms=ar_host_ms)
+
+
+def parallel_b_inputs(dev) -> dict:
+    """Phase 21b's inputs, made once on the CPU: the float32 field's seed-0
+    weights, 1024 rays and pixels, each rank's jitter, each rank's update
+    draws (uniform draws with given ranks, which concatenate into one
+    update's draws) and the rays of the render."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+
+    _, _, field, _, _, _ = bench_setup(dev, TRAIN_FIELD_CFG, None)
+    rng = np.random.default_rng(21)
+    d = rng.normal(size=(PAR_B_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1, skip_factor=2)
+    shell = shell_binaries(GRID_RES)
+    gen = torch.Generator().manual_seed(21)
+    n = est.cells_per_lvl // 4
+    draws = [[{
+        "uniform": torch.randint(0, est.cells_per_lvl, (n,), generator=gen),
+        "ranks": torch.randint(0, int(shell.sum()), (n,), generator=gen),
+        "jitter": torch.rand((2 * n, 3), generator=gen),
+    }] for _ in range(2)]
+    o_view, d_view = view_rays(torch.device("cpu"))
+    pick = torch.from_numpy(rng.choice(o_view.shape[0], PAR_B_RENDER_RAYS, replace=False))
+    return dict(
+        weights={k: v.cpu() for k, v in field.state_dict().items()},
+        rays_o=torch.from_numpy(-3.0 * d), rays_d=torch.from_numpy(d),
+        pixels=torch.from_numpy(rng.random((PAR_B_RAYS, 3), dtype=np.float32)),
+        jitter=[torch.from_numpy(rng.random(PAR_B_RAYS // 2, dtype=np.float32)) for _ in range(2)],
+        draws=draws, shell=torch.from_numpy(shell), view_o=o_view[pick], view_d=d_view[pick],
+    )
+
+
+def parallel_b_setup(dev, inp):
+    """Phase 21b's estimator, shell state (zero occupancies) and float32
+    field with the inputs' weights, and Adam."""
+    from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
+
+    est = OccGridEstimator(roi_aabb=AABB, resolution=GRID_RES, levels=1, skip_factor=2)
+    state = est.set_binaries(est.init(dev), inp["shell"])
+    field = ngp_field(TRAIN_FIELD_CFG, None, dev)
+    field.load_state_dict({k: v.to(dev) for k, v in inp["weights"].items()})
+    return est, state, field, torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+
+
+def parallel_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 21b: joins the gloo world of two on the one card,
+    then one parallel step on its half of the rays, one parallel update on
+    its own draws and the parallel render, with K1, K3 and K4-w3 counted in
+    each: K4-w3 once in the step, K3 once in the update (one level), K1 in
+    the step and the render, nothing else.  Then two more steps and one
+    more update hold K1 and K4-w3 on rank 0's step inputs and K3 on its
+    update's draws (rank 1 runs them too, for their collectives).  Writes
+    its results."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from nerfacc_tpu_torch.ops.occ_query import occupancy_query
+    from nerfacc_tpu_torch.ops.table_grad import cell_max, table_grad_w3
+    from nerfacc_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, make_parallel_occ_update, make_parallel_test_renderer,
+        make_parallel_train_step, replicate, shard_rays,
+    )
+
+    inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
+    dev = torch.device(inp["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo") != (rank, 2):
+        fail(f"parallel worker {rank}: did not join as rank {rank} of 2")
+    mesh = make_mesh(device=dev)
+    counted = {"K1": occupancy_query, "K3": cell_max, "K4-w3": table_grad_w3}
+    launches, ms = {}, {}
+
+    def counted_run(what, fn):
+        for kernel in counted.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        ms[what] = (time.perf_counter() - t0) * 1e3
+        launches[what] = {name: kernel.launches for name, kernel in counted.items()}
+        n = launches[what]
+        if not ((n["K1"] > 0) == (what != "update") and n["K4-w3"] == (what == "step")
+                and n["K3"] == (what == "update")):
+            fail(f"parallel worker {rank}: launches in the {what} {n}")
+        return result
+
+    est, state, field, opt = parallel_b_setup(dev, inp)
+    replicate(field, mesh)
+    state = replicate(state, mesh)
+    o, d, px = shard_rays((inp["rays_o"], inp["rays_d"], inp["pixels"]), mesh)
+    bkgd, jitter = torch.ones(3, device=dev), inp["jitter"][mesh.index].to(dev)
+    step = make_parallel_train_step(field, est, opt, mesh, render_step_size=STEP, near_plane=0.0,
+                                    sample_capacity_per_shard=PAR_B_CAPACITY, max_macro_segments=TRAIN_MACRO)
+    loss, n_samp = counted_run("step", lambda: step(state, o, d, px, bkgd, jitter=jitter))
+    out = dict(step=step_record(field, loss, n_samp))
+    update_field = parallel_b_setup(dev, inp)[2]  # the update and the render on the initial weights
+    update = make_parallel_occ_update(update_field, est, mesh, render_step_size=STEP)
+    draws = inp["draws"][mesh.index]
+    new = counted_run("update", lambda: update(state, draws=draws))
+    out["update"] = {k: getattr(new, k).cpu() for k in ("occs", "binaries", "binaries_packed", "skip_grid",
+                                                         "skip_packed")}
+    update_field.eval()
+    render = make_parallel_test_renderer(update_field, est, mesh, **RENDER_KW)
+    rgb, opacity, depth, rounds = counted_run(
+        "render", lambda: render(state, inp["view_o"].to(dev), inp["view_d"].to(dev), render_bkgd=bkgd))
+    out.update(render=(rgb.cpu(), opacity.cpu(), depth.cpu(), rounds), ms=ms, launches=launches)
+
+    def again():
+        return step(state, o, d, px, bkgd, jitter=jitter)
+
+    def update_again():
+        return update(state, draws=draws)
+
+    if mesh.index == 0:
+        out["kernels"] = dict(
+            k1=k1_on_train_inputs(again, state),
+            k4=grad_kernel_on_step_inputs("K4-w3", "table_grad_w3", again, "one 2-rank step's inputs (rank 0)"),
+            k3=k3_on_update_inputs(update_again, dev),
+        )
+    else:
+        for fn in (again, again, update_again):
+            fn()
+    dist.destroy_process_group()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def parallel_two_ranks(dev) -> dict:
+    """Phase 21b: two processes on the one card over gloo, each a rank
+    holding half of the rays: the 2-rank step against one process's step
+    on the union of the rays, the 2-rank update against one process's
+    ``_update`` on the union of the draws (the occupancies, from zero, are
+    the probes' max) and the OR of each rank's own binaries, and the 2-rank
+    render against ``occgrid_render_rays_test``.  A correctness run: the
+    times are two processes sharing one card."""
+    import os
+    from pathlib import Path
+
+    from nerfacc_tpu_torch.rendering import occgrid_render_rays_test
+
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "phase21b"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    inp = parallel_b_inputs(dev)
+    torch.save(dict(inp, device=str(dev)), out_dir / "inputs.pt")
+    port = free_port()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    procs = []
+    # Each rank's output to a file (a pipe nobody reads could fill); a rank
+    # that fails ends the other, which would wait in a collective.
+    for r in range(2):
+        with open(out_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-worker", str(r), str(port), str(out_dir)],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+    deadline = time.perf_counter() + 300
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = [(out_dir / f"rank{r}.log").read_text() for r in range(2)]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"parallel rank {r} of 2 (gloo) exited {p.returncode}:\n{log[-4000:]}")
+    print("".join(f"rank 0: {line}\n" for line in logs[0].splitlines()), end="", flush=True)
+    outs = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    spawn_s = time.perf_counter() - t_phase
+    launches = {k: sum(o["launches"][what][k] for o in outs for what in o["launches"]) for k in ("K1", "K3", "K4-w3")}
+    print(f"parallel (gloo, 2 ranks): launches per rank {[o['launches'] for o in outs]}; over both ranks "
+          f"{launches}", flush=True)
+    for key in ("step", "update"):
+        a, b = (o[key] for o in outs)
+        same = a["n"] == b["n"] and a["loss"] == b["loss"] if key == "step" else all(
+            torch.equal(a[k], b[k]) for k in a)
+        if not same:
+            fail(f"parallel (gloo, 2 ranks): the ranks' {key} results differ")
+
+    # One process on the union: the step on all the rays with both jitters.
+    est, state, field, opt = parallel_b_setup(dev, inp)
+    o, d, px = (inp[k].to(dev) for k in ("rays_o", "rays_d", "pixels"))
+    loss, n_samp, extras = train_step(field, opt, est, state, o, d, px, torch.cat(inp["jitter"]).to(dev),
+                                      2 * PAR_B_CAPACITY)
+    single = step_record(field, loss, n_samp)
+    if int(extras["n_over_capacity"]) != 0:
+        fail("parallel (gloo, 2 ranks): the union overflows its slots")
+    hold_step("gloo, 2 ranks on one card", outs[0]["step"], single, PAR_TOL, PAR_TOL,
+              f"{PAR_B_RAYS} rays, {PAR_B_CAPACITY} slots a rank", sides="parallel vs one process on the union")
+
+    # One process's update on the union of the draws, and on each rank's.
+    field = parallel_b_setup(dev, inp)[2]
+    q = est.cells_per_lvl // 4
+    draws = [r[0] for r in inp["draws"]]
+    union = [{"uniform": torch.cat([x["uniform"] for x in draws]), "ranks": torch.cat([x["ranks"] for x in draws]),
+              "jitter": torch.cat([x["jitter"][:q] for x in draws] + [x["jitter"][q:] for x in draws])}]
+    one = occ_update(est, state, field, draws=union, draw_mode="uniform")
+    each = [occ_update(est, state, field, draws=[x], draw_mode="uniform") for x in draws]
+    got = outs[0]["update"]
+    occ_err = float((got["occs"] - one.occs.cpu()).abs().max())
+    occ_each_err = float((got["occs"] - torch.maximum(each[0].occs, each[1].occs).cpu()).abs().max())
+    want_bin = (each[0].binaries | each[1].binaries).cpu()
+    rebuilt = est._grids(got["binaries"])
+    print(f"parallel update (gloo, 2 ranks): occs vs one update on the union of the draws max abs err {occ_err:.3e}, "
+          f"vs the max of each rank's {occ_each_err:.3e}; binaries equal to the OR of each rank's "
+          f"{torch.equal(got['binaries'], want_bin)}; derived grids rebuilt from the merged binaries "
+          f"{all(torch.equal(got[k], rebuilt[k]) for k in ('binaries_packed', 'skip_grid', 'skip_packed'))}",
+          flush=True)
+    # The probes' densities in two batches against one: the field's GEMMs may
+    # take other tilings at another row count, so allow 1e-6 of the largest.
+    scale = float(one.occs.abs().max())
+    if (occ_err > 1e-6 * scale or occ_each_err > 1e-6 * scale or not torch.equal(got["binaries"], want_bin)
+            or not all(torch.equal(got[k], rebuilt[k]) for k in ("binaries_packed", "skip_grid", "skip_packed"))):
+        fail("parallel update (gloo, 2 ranks) disagrees with one process")
+
+    # The render against the single-process renderer on the same rays.
+    field.eval()
+    want = occgrid_render_rays_test(field_builder(field), est, state, inp["view_o"].to(dev), inp["view_d"].to(dev),
+                                    render_bkgd=torch.ones(3, device=dev), **RENDER_KW)
+    rgb_err = same_view("parallel render (gloo, 2 ranks) vs occgrid_render_rays_test", outs[0]["render"][:3],
+                        [t.cpu() for t in want[:3]], PAR_RENDER_ATOL)
+    ms = outs[0]["ms"]
+    print(f"parallel (gloo, 2 ranks on one card; a correctness run, not scaling): step {ms['step']:.1f} ms, "
+          f"update {ms['update']:.1f} ms, render of {PAR_B_RENDER_RAYS} rays {ms['render']:.1f} ms "
+          f"({outs[0]['render'][3]} rounds), first calls; the two processes took {spawn_s:.1f} s; "
+          f"phase 21b took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(occ_err=occ_err, rgb_err=rgb_err, ms=ms, launches=launches, kernels=outs[0]["kernels"])
+
+
+def parallel_phase(dev, card_line, phase6=None) -> dict:
+    """Phase 21: (a) then (b)."""
+    t0 = time.perf_counter()
+    a = parallel_world_of_one(dev, card_line, phase6)
+    b = parallel_two_ranks(dev)
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(a, b=b)
+
+
+ALL_PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21)
 # A phase that needs another's results: serve needs phase 2's grid, the crop
 # the served field, and phase 8 the weights trained in phases 6 and 7.
 NEEDS = {3: (2,), 4: (3,), 8: (6, 7)}
@@ -3773,9 +4260,13 @@ def parse_phases(argv) -> tuple:
 
 
 def main(argv=None) -> None:
-    run = parse_phases(argv)
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
+    if argv[:1] == ["--parallel-worker"]:  # one rank of phase 21b
+        parallel_worker(int(argv[1]), int(argv[2]), argv[3])
+        return
+    run = parse_phases(argv)
     from nerfacc_tpu_torch.ops import _build
     from nerfacc_tpu_torch.ops.table_grad import table_grad_pos, table_grad_u10, table_grad_w3
 
@@ -3812,10 +4303,12 @@ def main(argv=None) -> None:
         kt = kernels_vs_plain(dev)
 
     # ---- 6. train at full width ---------------------------------------------
+    phase6 = {}
     if 6 in run:
         trained, train_launches, k1_train_err, train_step_ms = train_full_width(
-            dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_inputs=True
+            dev, TRAIN_FIELD_CFG, table_grad_u10, "K2", "profile_train.txt", check_inputs=True, details=phase6
         )
+        phase6["step_ms"] = train_step_ms
 
     # ---- 7. train at full width, tcnn shape (grouped encoder) ---------------
     if 7 in run:
@@ -3876,6 +4369,10 @@ def main(argv=None) -> None:
         capture = train_capture(dev, card_line)
     if 20 in run:
         profiler_tools()
+
+    # ---- 21. parallel/: NCCL in a world of one; two gloo ranks on one card --
+    if 21 in run:
+        par = parallel_phase(dev, card_line, phase6 or None)
 
     print(card_line, flush=True)  # nvidia-smi's name and power limit
     if run == ALL_PHASES:
@@ -3974,6 +4471,31 @@ def main(argv=None) -> None:
         kernels.append(kernel_row("table_grad_w3_capture", src + "table_grad.cu", tg_py + "572",
                                   capture["launches"]["K4-w3"], k4["err"], k4["ms"], k4["plain_ms"], k4["bytes"],
                                   k4["ops"], None))
+        # K1, K2 and K3 on the parallel train path (phase 21a), each on its own
+        # inputs (one parallel step's queries and table gradient, one update's draws).
+        lat, k2, k3 = par["k1"]["lattice"], par["k2"], par["k3"]
+        kernels += [
+            kernel_row("occupancy_query_parallel", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       par["launches"]["K1"], par["k1"]["err"], lat["ms"], lat["plain_ms"], lat["bytes"], lat["ops"],
+                       None),
+            kernel_row("table_grad_u10_parallel", src + "table_grad_u10.cu", tg_py + "749", par["launches"]["K2"],
+                       k2["err"], k2["ms"], k2["plain_ms"], k2["bytes"], k2["ops"], None),
+            kernel_row("cell_max_parallel", src + "cell_max.cu", tg_py + "1918", par["launches"]["K3"], k3["err"],
+                       k3["ms"], k3["plain_ms"], k3["bytes"], k3["ops"], k3["library_ms"]),
+        ]
+        # K1, K4-w3 (float32) and K3 on the two gloo ranks' path (phase 21b),
+        # launches over both ranks, each held on rank 0's own inputs.
+        b = par["b"]
+        k1, k4, k3 = b["kernels"]["k1"], b["kernels"]["k4"], b["kernels"]["k3"]
+        lat = k1["lattice"]
+        kernels += [
+            kernel_row("occupancy_query_parallel_gloo", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
+                       b["launches"]["K1"], k1["err"], lat["ms"], lat["plain_ms"], lat["bytes"], lat["ops"], None),
+            kernel_row("table_grad_w3_parallel_gloo", src + "table_grad.cu", tg_py + "572", b["launches"]["K4-w3"],
+                       k4["err"], k4["ms"], k4["plain_ms"], k4["bytes"], k4["ops"], None),
+            kernel_row("cell_max_parallel_gloo", src + "cell_max.cu", tg_py + "1918", b["launches"]["K3"], k3["err"],
+                       k3["ms"], k3["plain_ms"], k3["bytes"], k3["ops"], k3["library_ms"]),
+        ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -228,73 +228,106 @@ def occgrid_render_rays_test(
     depth = torch.zeros((n_rays, 1), dtype=dtype, device=device)
     total_samples = torch.zeros((), dtype=torch.int64, device=device)
 
-    n_slots = n_rays * samples_per_round
+    carry = (near_planes, alive, rgb, opacity, depth)
     iter_samples = 0
     while iter_samples < max_samples:
-        n_alive = int(alive.sum())
+        n_alive = int(carry[1].sum())
         if n_alive == 0:
             break
-        with record_function("traverse_grids"):
-            res = traverse_grids(
-                rays_o,
-                rays_d,
-                state.binaries,
-                state.aabbs,
-                near_planes=near_planes,
-                far_planes=far_planes,
-                step_size=render_step_size,
-                cone_angle=cone_angle,
-                traverse_steps_limit=samples_per_round,
-                rays_mask=alive,
-                max_lattice_steps=window,
-                packed_grids=state.binaries_packed,
-            )
-        with record_function("compact_indices_from_counts"):
-            gather_idx, ray_indices, kept = compact_indices_from_counts(
-                res.num_valid, samples_per_round, n_alive * samples_per_round
-            )
-            t_starts = res.t_starts.reshape(-1)[gather_idx]
-            t_ends = res.t_ends.reshape(-1)[gather_idx]
-            t_ends = torch.where(kept, t_ends, t_starts)
-
-        rgbs, sigmas = rgb_sigma_fn(t_starts, t_ends, ray_indices)
-        with record_function("render_weight_from_density"):
-            # Weights on the traversal's (n_rays, samples_per_round) rows:
-            # each ray's transmittance is a cumsum over its own row, so no
-            # rounding carries from one ray into the next.  Padding slots go
-            # to a spare slot; empty row slots have t_start == t_end.
-            slot = torch.where(kept, gather_idx, n_slots)
-            sigma_rows = sigmas.new_zeros(n_slots + 1).scatter_(0, slot, sigmas)
-            weights, _, alphas = render_weight_from_density(
-                res.t_starts,
-                res.t_ends,
-                sigma_rows[:n_slots].view(n_rays, samples_per_round),
-                prefix_trans=1.0 - opacity,
-            )
-            weights = torch.where(kept, weights.reshape(-1)[gather_idx], 0.0)
-            if alpha_thre > 0:
-                alphas = alphas.reshape(-1)[gather_idx]
-                weights = torch.where(alphas >= alpha_thre, weights, 0.0)
-
-        with record_function("accumulate_along_rays"):
-            rgb = rgb + accumulate_along_rays(weights, rgbs, ray_indices, n_rays)
-            opacity = opacity + accumulate_along_rays(weights, None, ray_indices, n_rays)
-            depth = depth + accumulate_along_rays(
-                weights * (t_starts + t_ends) / 2.0, None, ray_indices, n_rays
-            )
-        near_planes = res.termination_planes
-        alive = (
-            alive
-            & (opacity[:, 0] <= 1.0 - early_stop_eps)
-            & (near_planes < res.far_effective - 1e-6)
+        carry, n_kept = _test_round(
+            rgb_sigma_fn, state, rays_o, rays_d, far_planes, carry, n_alive,
+            samples_per_round=samples_per_round, window=window, render_step_size=render_step_size,
+            cone_angle=cone_angle, alpha_thre=alpha_thre, early_stop_eps=early_stop_eps,
         )
-        total_samples += kept.sum()
+        total_samples += n_kept
         iter_samples += samples_per_round
+    _, _, rgb, opacity, depth = carry
 
     if render_bkgd is not None:
         rgb = rgb + render_bkgd * (1.0 - opacity)
     depth = depth / opacity.clamp(min=torch.finfo(dtype).eps)
     return rgb, opacity, depth, int(total_samples)
+
+
+def _test_round(
+    rgb_sigma_fn: Callable,
+    state: OccGridState,
+    rays_o: Tensor,
+    rays_d: Tensor,
+    far_planes: Tensor,
+    carry: Tuple[Tensor, Tensor, Tensor, Tensor, Tensor],
+    n_alive: int,
+    *,
+    samples_per_round: int,
+    window: int,
+    render_step_size: float,
+    cone_angle: float,
+    alpha_thre: float,
+    early_stop_eps: float,
+) -> Tuple[Tuple[Tensor, Tensor, Tensor, Tensor, Tensor], Tensor]:
+    """One round of the inference renderer on the rays' own device: traverse
+    a window of ``samples_per_round`` samples per alive ray (``n_alive`` of
+    them), compact them, query the field and accumulate.  ``carry`` is
+    ``(near_planes, alive, rgb, opacity, depth)``; returns the next carry and
+    the round's kept-sample count (on the device)."""
+    near_planes, alive, rgb, opacity, depth = carry
+    n_rays = rays_o.shape[0]
+    n_slots = n_rays * samples_per_round
+    with record_function("traverse_grids"):
+        res = traverse_grids(
+            rays_o,
+            rays_d,
+            state.binaries,
+            state.aabbs,
+            near_planes=near_planes,
+            far_planes=far_planes,
+            step_size=render_step_size,
+            cone_angle=cone_angle,
+            traverse_steps_limit=samples_per_round,
+            rays_mask=alive,
+            max_lattice_steps=window,
+            packed_grids=state.binaries_packed,
+        )
+    with record_function("compact_indices_from_counts"):
+        gather_idx, ray_indices, kept = compact_indices_from_counts(
+            res.num_valid, samples_per_round, n_alive * samples_per_round
+        )
+        t_starts = res.t_starts.reshape(-1)[gather_idx]
+        t_ends = res.t_ends.reshape(-1)[gather_idx]
+        t_ends = torch.where(kept, t_ends, t_starts)
+
+    rgbs, sigmas = rgb_sigma_fn(t_starts, t_ends, ray_indices)
+    with record_function("render_weight_from_density"):
+        # Weights on the traversal's (n_rays, samples_per_round) rows:
+        # each ray's transmittance is a cumsum over its own row, so no
+        # rounding carries from one ray into the next.  Padding slots go
+        # to a spare slot; empty row slots have t_start == t_end.
+        slot = torch.where(kept, gather_idx, n_slots)
+        sigma_rows = sigmas.new_zeros(n_slots + 1).scatter_(0, slot, sigmas)
+        weights, _, alphas = render_weight_from_density(
+            res.t_starts,
+            res.t_ends,
+            sigma_rows[:n_slots].view(n_rays, samples_per_round),
+            prefix_trans=1.0 - opacity,
+        )
+        weights = torch.where(kept, weights.reshape(-1)[gather_idx], 0.0)
+        if alpha_thre > 0:
+            alphas = alphas.reshape(-1)[gather_idx]
+            weights = torch.where(alphas >= alpha_thre, weights, 0.0)
+
+    with record_function("accumulate_along_rays"):
+        rgb = rgb + accumulate_along_rays(weights, rgbs, ray_indices, n_rays)
+        opacity = opacity + accumulate_along_rays(weights, None, ray_indices, n_rays)
+        depth = depth + accumulate_along_rays(
+            weights * (t_starts + t_ends) / 2.0, None, ray_indices, n_rays
+        )
+    near_planes = res.termination_planes
+    alive = (
+        alive
+        & (opacity[:, 0] <= 1.0 - early_stop_eps)
+        & (near_planes < res.far_effective - 1e-6)
+    )
+    return (near_planes, alive, rgb, opacity, depth), kept.sum()
 
 
 def propnet_render_rays(

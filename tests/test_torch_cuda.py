@@ -1375,3 +1375,111 @@ def test_barf_step_launches_k1_and_matches_the_cpu(cuda):
         results.append((float(loss), int(n_samp), grads))
     assert float(results[1][2]["pose_deltas"].abs().max()) > 0
     _hold(results)
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda):
+    """A process group of one rank over NCCL, left after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nerfacc_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl") == (0, 1)
+    assert dist.get_backend() == "nccl"
+    yield make_mesh(device=cuda)
+    dist.destroy_process_group()
+
+
+def _parallel_setup(cuda):
+    """A 1024-ray bf16 step at bench.py's field width on a res-128 shell."""
+    from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+
+    est = OccGridEstimator(roi_aabb=[-1.5] * 3 + [1.5] * 3, resolution=128, levels=1, skip_factor=2)
+    g = (np.arange(128) + 0.5) / 128 * 2 - 1
+    gx, gy, gz = np.meshgrid(g, g, g, indexing="ij")
+    state = est.set_binaries(est.init(cuda), torch.from_numpy(np.abs(np.sqrt(gx**2 + gy**2 + gz**2) - 0.45) < 0.08)[None])
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    batch = [torch.from_numpy(a).to(cuda) for a in (-3.0 * d, d, rng.random((1024, 3), dtype=np.float32),
+                                                  rng.random(1024, dtype=np.float32))]
+
+    def make_field():
+        field = NGPRadianceField(aabb=[-1.5] * 3 + [1.5] * 3, n_levels=4, n_features_per_level=16, log2_hashmap_size=18,
+                                 compute_dtype=torch.bfloat16, device=cuda, generator=torch.Generator().manual_seed(0))
+        return field, torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+
+    return est, state, batch, make_field
+
+
+@pytest.mark.cuda
+def test_parallel_step_over_nccl_equals_the_plain_step(nccl_world_of_one):
+    # A world of one over NCCL: the flattened gradients go through one
+    # all-reduce and come back divided by 1, so the step is the plain one's
+    # (K1, K2 launched on both), up to the kernels' atomics.
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.parallel import make_parallel_train_step
+    from nerfacc_tpu_torch.rendering import gather_ray_od, occgrid_render_rays
+
+    mesh = nccl_world_of_one
+    cuda = mesh.device
+    est, state, (rays_o, rays_d, pixels, jitter), make_field = _parallel_setup(cuda)
+    kw = dict(render_step_size=5e-3, near_plane=0.0, max_macro_segments=4)
+    out = []
+    for parallel in (True, False):
+        field, opt = make_field()
+        tg.table_grad_u10.launches = 0
+        if parallel:
+            step = make_parallel_train_step(field, est, opt, mesh, sample_capacity_per_shard=1 << 15, **kw)
+            loss, n = step(state, rays_o, rays_d, pixels, torch.ones(3, device=cuda), jitter=jitter)
+        else:
+            def rgb_sigma_fn(ts, te, ri):
+                o, dd = gather_ray_od(rays_o, rays_d, ri)
+                rgb, sigma = field(o + ((ts + te) / 2)[:, None] * dd, dd)
+                return rgb, sigma[..., 0]
+
+            colors, _, _, n, _ = occgrid_render_rays(
+                rgb_sigma_fn, None, est, state, rays_o, rays_d, render_bkgd=torch.ones(3, device=cuda),
+                stratified=True, jitter=jitter, sample_capacity=1 << 15, **kw,
+            )
+            loss = torch.nn.functional.huber_loss(colors, pixels, delta=1.0)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        torch.cuda.synchronize()
+        assert tg.table_grad_u10.launches == 1
+        out.append((int(n), float(loss), {k: p.grad.cpu() for k, p in field.named_parameters()},
+                    {k: p.detach().cpu() for k, p in field.named_parameters()}))
+    (n_p, l_p, g_p, p_p), (n_s, l_s, g_s, p_s) = out
+    assert n_p == n_s > 0
+    assert l_p == pytest.approx(l_s, rel=1e-6)
+    for k, g in g_s.items():
+        torch.testing.assert_close(g_p[k], g, rtol=0, atol=1e-5 * float(g.abs().max()), msg=k)
+        held = (torch.sign(g_p[k]) == torch.sign(g)) & (g.abs() > 1e-9)
+        assert float((p_p[k] - p_s[k]).abs()[held].max()) <= 1e-6, k
+
+
+@pytest.mark.cuda
+def test_parallel_update_over_nccl_equals_update(nccl_world_of_one):
+    # The max-merge of one rank is the rank's own update (K3 on both), and
+    # the derived grids are rebuilt from the merged binaries.
+    from nerfacc_tpu_torch.ops import table_grad as tg
+    from nerfacc_tpu_torch.parallel import make_parallel_occ_update
+
+    mesh = nccl_world_of_one
+    cuda = mesh.device
+    est, state, _, make_field = _parallel_setup(cuda)
+    field, _ = make_field()
+    draws = est.make_draws(10**9, torch.Generator().manual_seed(3), device=cuda)
+    tg.cell_max.launches = 0
+    got = make_parallel_occ_update(field, est, mesh, render_step_size=5e-3)(state, draws=draws)
+    want = est._update(state, 10**9, lambda x: field.query_density(x) * 5e-3, draws=draws)
+    torch.cuda.synchronize()
+    assert tg.cell_max.launches == 2
+    for k in ("occs", "binaries", "binaries_packed", "skip_grid", "skip_packed"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k

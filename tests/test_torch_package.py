@@ -34,7 +34,8 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("datasets/colmap.py", "datasets/jpeg.py", "datasets/nerf_360_v2.py", "datasets/_native.py",
-                "utils/profiler.py", "scripts/run_profiler.py", "scripts/capture_trace.py"):
+                "utils/profiler.py", "scripts/run_profiler.py", "scripts/capture_trace.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/multihost.py", "parallel/train.py", "scripts/bench_scaling.py"):
         assert f"nerfacc_tpu_torch/{new}" in names, new
     bad = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN)
@@ -155,3 +156,16 @@ def test_k1_variant_substitutions_match_the_kernel_source(monkeypatch):
 
 def test_k3_variant_substitutions_match_the_kernel_source(monkeypatch):
     _variants_match_their_source(monkeypatch, "k3", 4)
+
+
+def test_the_port_parallel_exports_the_jax_package_parallel_names():
+    # The 13 names of nerfacc_tpu/parallel/__init__.py, each documented with
+    # its JAX counterpart's file and lines.
+    want = _all_names(REPO / "nerfacc_tpu" / "parallel" / "__init__.py")
+    assert len(want) == 13
+    import nerfacc_tpu_torch.parallel as parallel
+
+    assert parallel.__all__ == want
+    for name in want:
+        doc = getattr(parallel, name).__doc__
+        assert doc and any(f"{m}.py:" in doc for m in ("mesh", "multihost", "train")), name
