@@ -25,11 +25,13 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
 5. the table-gradient kernels against their plain versions on the card, at
    the training shapes, with timings beside each kernel's bound: K2 (bf16),
    K4 (w3 in float32 and bf16, w8 in bf16 and float32) and K5 (bf16) at
-   2^21 sample-levels over 4 x 2^15 rows, K6 at 2^19 samples over 2 x 2^16
-   rows at each window width (``K6_SPLITS``: F = 2 at splits 4, 1, 2 and 8,
-   F = 8 at split 1), and K3 (per-cell max) at 2^20 draws; each kernel's
-   share of its bound, the zeroing of the output, the sorts and the
-   ``quantize_u10`` of K2's weights (ahead of K2 on the main path).
+   2^21 sample-levels over 4 x 2^15 rows; every one of K6's 15 instances
+   (``K6_INSTANCES``: F = 1, 2, 4, 8, 16 at each split), each launched once
+   by the grouped encoder's own bf16 backward at 2^14 samples and held on
+   that call's inputs, then held and timed at 2^19 samples over the
+   encoder's F spans of 2^16 rows; and K3 (per-cell max) at 2^20 draws;
+   each kernel's share of its bound, the zeroing of the output, the sorts
+   and the ``quantize_u10`` of K2's weights (ahead of K2 on the main path).
 6. train: the NGP-occ train step of ``bench.py:59-294`` at its full width
    (16384 rays, 2^19 samples, bf16 compute, the fused encoder L4 x F16),
    3 warm-up steps, 30 timed steps and 8 timed occupancy updates;
@@ -708,15 +710,25 @@ def shell_points(rng, n: int, dev) -> torch.Tensor:
     return torch.from_numpy((0.5 + radius * dirs).astype(np.float32)).to(dev)
 
 
-# K6's window widths held in phase 5, as (F, keys_per_row, log2_hashmap_size):
-# the tcnn shape (16 levels x 2 features, 2 spans of 2^16 rows) at its default
-# split 4 and at splits 1, 2 and 8, and 16 levels x 8 features at split 1
-# (the fall-back of every split 4 at F = 8) over the same 2 x 2^16 rows.
-K6_SPLITS = ((2, 4, 16), (2, 1, 16), (2, 2, 16), (2, 8, 16), (8, 1, 14))
+# Every K6 instance held in phase 5, as (F, keys_per_row): each
+# keys_per_row that divides J = 16 / F, so windows of 16 / keys_per_row
+# columns a corner (the 15 (jg, F) instances of csrc/table_grad_pos.cu), at
+# the grouped encoder's own shape: 16 levels, log2_hashmap_size 16 (what
+# NGPRadianceField gives it from its 19), so 16 / J spans of 2^16 rows.
+K6_INSTANCES = tuple((F, k) for F in (1, 2, 4, 8, 16) for k in (1, 2, 4, 8, 16) if (16 // F) % k == 0)
+K6_LOG2T = 16
+K6_SMALL = 1 << 14  # samples of the encoder's own backward that launches each instance
 
 
 def k6_label(F: int, keys_per_row: int) -> str:
     return "K6" if (F, keys_per_row) == (2, 4) else f"K6-F{F}-split{keys_per_row}"
+
+
+def k6_row_name(F: int, keys_per_row: int) -> str:
+    """The kernel table's name of a K6 instance (F = 2 keeps its earlier names)."""
+    if (F, keys_per_row) == (2, 4):
+        return "table_grad_pos"
+    return f"table_grad_pos_split{keys_per_row}" if F == 2 else f"table_grad_pos_F{F}_split{keys_per_row}"
 
 
 def k6_inputs(u, rng, dev, F=2, keys_per_row=4, log2t=16) -> tuple:
@@ -742,6 +754,46 @@ def k6_inputs(u, rng, dev, F=2, keys_per_row=4, log2t=16) -> tuple:
     args = (g_sorted, g_perm, gx, gy, gz, g_dout, g_n_rows, genc.fetches, F,
             FetchConsts(genc._fetch_res, genc._fetch_is_key, genc._fetch_win))
     return args, g_key, g_untouched
+
+
+def k6_through_the_encoder(dev, F, keys_per_row, rng) -> tuple:
+    """One bf16 forward and backward of the grouped encoder (``F``,
+    ``keys_per_row``, ``K6_LOG2T``) on ``K6_SMALL`` points around the shell:
+    the backward must launch K6 once (its count zeroed just before, read just
+    after), and the kernel is then held against its plain version on the
+    arguments of that call.  Returns the launches and the error."""
+    import nerfacc_tpu_torch.ops.table_grad as tg
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+
+    enc = HashGridEncoderGrouped(n_features_per_level=F, log2_hashmap_size=K6_LOG2T, keys_per_row=keys_per_row,
+                                 compute_dtype=torch.bfloat16, device=dev)
+    out = enc(shell_points(rng, K6_SMALL, dev))
+    dout = torch.from_numpy((rng.standard_normal(tuple(out.shape)) * 1e-3).astype(np.float32)).to(dev, out.dtype)
+    kernel, calls = tg.table_grad_pos, []
+
+    def recording(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    # The encoder's backward and the wrapper's own count both look K6 up in
+    # its module, so while the recorder stands there the launches count on it.
+    recording.launches = 0
+    tg.table_grad_pos = recording
+    try:
+        out.backward(dout)
+        torch.cuda.synchronize()
+        launches = recording.launches
+    finally:
+        tg.table_grad_pos = kernel
+    if launches != 1 or len(calls) != 1:
+        fail(f"{k6_label(F, keys_per_row)}: the grouped encoder's backward launched K6 {launches} times, not once")
+    got, want = kernel(*calls[0]), tg.table_grad_pos_plain(*calls[0])
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not err <= 1e-5 * scale:
+        fail(f"{k6_label(F, keys_per_row)} disagrees with its plain version on the encoder's backward: "
+             f"{err} > 1e-5 * {scale}")
+    return launches, err
 
 
 def fused_inputs(u, rng, dev) -> tuple:
@@ -802,28 +854,9 @@ def kernels_vs_plain(dev) -> dict:
     untouched = torch.bincount(idx.long(), minlength=n_rows) == 0
     print(f"K2/K4/K5 inputs: {n_sl} sample-levels over {n_rows} rows, level 0 on {rows_hit} rows", flush=True)
 
-    # K6 at the grouped train shape: the same points through the tcnn-shape
-    # encoder, at each split of K6_SPLITS (one window width each).
-    k6_cases = []
-    for F, split, log2t in K6_SPLITS:
-        args, key, zero_rows = k6_inputs(u, rng, dev, F, split, log2t)
-        nf, jg = len(args[7]), len(args[7][0].res)
-        print(f"{k6_label(F, split)} inputs: {n} samples x {nf} fetches over {args[6]} rows, F = {F}, "
-              f"keys_per_row {split}, {jg * F} columns a corner", flush=True)
-        k6_cases.append((k6_label(F, split), table_grad_pos, table_grad_pos_plain, args, zero_rows))
-        if (F, split) == (2, 4):
-            g_key, g_n_rows = key, args[6]
-
     out = {}
-    for label, kern, plain, args, zero_rows in (
-        ("K2", table_grad_u10, table_grad_u10_plain, (sorted_idx, perm, wq, dout_bf, n_rows), untouched),
-        ("K4-w3", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, wx, wy, wz, dout, n_rows), untouched),
-        ("K4-w3-bf16", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, *w3_bf, dout_bf, n_rows), untouched),
-        ("K4-w8-bf16", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8_bf, dout_bf, n_rows), untouched),
-        ("K4-w8", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8, dout, n_rows), untouched),
-        ("K5", table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg, n_rows), untouched),
-        *k6_cases,
-    ):
+
+    def held_and_timed(label, kern, plain, args, zero_rows) -> dict:
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -835,10 +868,44 @@ def kernels_vs_plain(dev) -> dict:
             fail(f"{label} disagrees with its plain version: {err} > 1e-5 * {scale}")
         if bool(got[zero_rows].any()):
             fail(f"{label} wrote rows that no sample names")
-        out[label] = dict(
-            err=err, ms=time_ms(lambda: kern(*args)), plain_ms=time_ms(lambda: plain(*args), calls=5)
-        )
         del got, want
+        return dict(err=err, ms=time_ms(lambda: kern(*args)), plain_ms=time_ms(lambda: plain(*args), calls=5))
+
+    for label, kern, plain, args, zero_rows in (
+        ("K2", table_grad_u10, table_grad_u10_plain, (sorted_idx, perm, wq, dout_bf, n_rows), untouched),
+        ("K4-w3", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, wx, wy, wz, dout, n_rows), untouched),
+        ("K4-w3-bf16", table_grad_w3, table_grad_w3_plain, (sorted_idx, perm, *w3_bf, dout_bf, n_rows), untouched),
+        ("K4-w8-bf16", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8_bf, dout_bf, n_rows), untouched),
+        ("K4-w8", table_grad_w8, table_grad_w8_plain, (sorted_idx, perm, w8, dout, n_rows), untouched),
+        ("K5", table_grad_sorted, table_grad_sorted_plain, (sorted_idx, perm, dg, n_rows), untouched),
+    ):
+        out[label] = held_and_timed(label, kern, plain, args, zero_rows)
+
+    # Every K6 instance: launched by the grouped encoder's own backward at
+    # K6_SMALL samples and held there, then held and timed at the grouped
+    # train shape (the same points through the encoder, 2^19 samples).
+    k6_rng = np.random.default_rng(6)
+    for F, split in K6_INSTANCES:
+        label = k6_label(F, split)
+        launches, small_err = k6_through_the_encoder(dev, F, split, k6_rng)
+        args, key, zero_rows = k6_inputs(u, k6_rng, dev, F, split, K6_LOG2T)
+        fetches, k6_rows = args[7], args[6]
+        nf, jg = len(fetches), len(fetches[0].res)
+        print(f"{label} inputs: {n} samples x {nf} fetches over {k6_rows} rows, F = {F}, keys_per_row {split}, "
+              f"{jg * F} columns a corner; the encoder's backward at {K6_SMALL} samples launched it {launches} "
+              f"time(s), max abs err {small_err:.3e}", flush=True)
+        out[label] = held_and_timed(label, table_grad_pos, table_grad_pos_plain, args, zero_rows)
+        n_pairs = nf * n
+        # A key and jg * F bf16 cotangents a pair, a position a sample, the
+        # table written once.
+        out[label]["bytes"] = n_pairs * (4 + 2 * jg * F) + n * 3 * 4 + k6_rows * 128 * 4
+        # Per pair: each sub-level's fractions and corner weights (about 46
+        # operations) and 8 jg F terms of a multiply and an add.
+        out[label]["ops"] = n_pairs * (jg * 46 + 8 * jg * F * 2)
+        out[label].update(launches=launches, err=max(out[label]["err"], small_err))
+        if (F, split) == (2, 4):
+            g_key = key
+        del args, key, zero_rows
     # K5's library call: index_add_ of the same cotangent into a float32
     # table (the bf16 rows widened to float32 beforehand, outside the time).
     dg_f32, idx_long = dg.float(), idx.long()
@@ -864,16 +931,6 @@ def kernels_vs_plain(dev) -> dict:
         out[label]["bytes"] = n_sl * per_sample + table_bytes
         # A multiply and an add per term (K5: an add per element).
         out[label]["ops"] = n_sl * 128 * (1 if label == "K5" else 2)
-    for label, _, _, args, _ in k6_cases:
-        fetches, F = args[7], args[8]
-        n_pairs, jg = len(fetches) * n, len(fetches[0].res)
-        # A key and jg * F bf16 cotangents a pair, a position a sample, the
-        # table written once.
-        out[label]["bytes"] = n_pairs * (4 + 2 * jg * F) + n * 3 * 4 + args[6] * 128 * 4
-        # Per pair: each sub-level's fractions and corner weights (about 46
-        # operations) and 8 jg F terms of a multiply and an add.
-        out[label]["ops"] = n_pairs * (jg * 46 + 8 * jg * F * 2)
-    del k6_cases
     n_pairs = g_key.numel()
     for label, o in out.items():
         bound = o["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -883,7 +940,7 @@ def kernels_vs_plain(dev) -> dict:
             + (f", index_add_ {o['library_ms']:.4f} ms" if "library_ms" in o else ""),
             flush=True,
         )
-    for rows in sorted({n_rows, g_n_rows}):
+    for rows in sorted({n_rows} | {F << K6_LOG2T for F, _ in K6_INSTANCES}):  # F spans of 2^16 rows
         print(f"torch.zeros of a ({rows}, 128) float32 output (inside each kernel's time): "
               f"{time_ms(lambda: torch.zeros((rows, 128), device=dev)):.4f} ms", flush=True)
     print(f"torch.sort of {n_sl} int32 rows (outside K2, K4, K5): {sort_ms:.4f} ms", flush=True)
@@ -4382,6 +4439,8 @@ def main(argv=None) -> None:
         # K5: their routes' card steps in phase 8.
         src = "nerfacc_tpu_torch/csrc/"
         tg_py = "nerfacc_tpu/ops/table_grad.py:"
+        k6_paths = {(2, 4): grouped_launches["K6"], (2, 2): route_launches["grouped bf16 split 2"],
+                    (2, 8): route_launches["grouped bf16 split 8"]}
         kernels = [
             kernel_row("occupancy_query", src + "occ_query.cu", "nerfacc_tpu/ops/occ_query.py:121",
                        train_launches["K1"], max(k1["err"], k1_train_err), k1["ms"], k1["plain_ms"],
@@ -4396,13 +4455,17 @@ def main(argv=None) -> None:
                 ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),
                 ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),
                 ("table_grad_sorted", "K5", "table_grad_sorted.cu", "245", route_launches["pallas bf16"]),
-                ("table_grad_pos", "K6", "table_grad_pos.cu", "1488", grouped_launches["K6"]),
-                ("table_grad_pos_split2", "K6-F2-split2", "table_grad_pos.cu", "1488",
-                 route_launches["grouped bf16 split 2"]),
-                ("table_grad_pos_split8", "K6-F2-split8", "table_grad_pos.cu", "1488",
-                 route_launches["grouped bf16 split 8"]),
                 ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
             )
+        ] + [
+            # Every K6 instance at the grouped train shape: the default split's
+            # launches from phase 7's train path, splits 2 and 8 at F = 2 from
+            # phase 8's steps, the others from the grouped encoder's own
+            # backward in phase 5.
+            kernel_row(k6_row_name(F, k), src + "table_grad_pos.cu", tg_py + "1488",
+                       k6_paths.get((F, k), kt[key]["launches"]), kt[key]["err"], kt[key]["ms"], kt[key]["plain_ms"],
+                       kt[key]["bytes"], kt[key]["ops"], None)
+            for F, k in K6_INSTANCES for key in (k6_label(F, k),)
         ] + [
             # K1 and K3 again on the unbounded train path (phase 10): K1 on
             # one step's 4-level lattice queries, K3 at 2^23 cells on one

@@ -788,7 +788,8 @@ def cell_max(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
     ``vals`` whose ``ids`` name each cell and ``-1`` where none does, equal
     to ``full(-1).scatter_reduce(ids, vals, "amax")``.  ``ids`` int32 in
     ``[0, n_cells)`` (the kernel skips others).  A CPU tensor takes
-    :func:`cell_max_plain`; a CUDA tensor launches the kernel or raises."""
+    :func:`cell_max_plain`; a CUDA tensor launches the kernel or raises.
+    The kernel writes every cell, the ``-1`` of the untouched ones too."""
     if vals.device.type == "cpu":
         return cell_max_plain(ids, vals, n_cells)
     if vals.device.type != "cuda":
@@ -802,7 +803,7 @@ def cell_max(ids: Tensor, vals: Tensor, n_cells: int) -> Tensor:
     if n_cells <= 0 or n_cells >= 1 << 31:
         raise ValueError(f"cell_max: n_cells={n_cells} out of range")
     lib = _cell_max_lib()
-    out = torch.full((n_cells,), -1.0, dtype=torch.float32, device=vals.device)
+    out = torch.empty((n_cells,), dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         rc = lib.cell_max_launch(

@@ -347,6 +347,10 @@ K3_CASES = (
     "sysrow",        # a uniform half and rows of 128 ascending occupied ids, as the update draws
     "zeros",         # 0.0, -0.0 (which counts as 0.0) and subnormal values
     "odd-cells",     # a cell count that is not a multiple of 4 or of a window
+    "empty",         # no draws: every cell -1
+    "sysrow-4-levels",  # the update's draws in level 1 of four levels of 2^21 cells
+    "wide",          # 2^23 cells drawn all over: more windows than clusters fit at once
+    "cells-1", "cells-5", "cells-134217731",  # part of one window's sectors; 147 windows
 )
 
 
@@ -354,9 +358,13 @@ def _k3_inputs(case, device):
     """K3's ``(ids, vals, n_cells)`` for one case of the card test."""
     rng = np.random.default_rng(K3_CASES.index(case))
     kind, _, size = case.partition("-")
-    n_cells = (1 << 21) - 3 if kind == "odd" else 1 << 21
-    n = int(size) if kind == "ragged" else 65_536 if kind == "one" else 1 << 20
-    ids = rng.integers(0, n_cells, n)
+    level = 1 << 21  # one grid level of 128^3 cells
+    four = size == "4-levels"  # the draws in level 1, the output four levels
+    n_cells = (int(size) if kind == "cells" else level - 3 if kind == "odd"
+               else 4 * level if kind == "wide" or four else level)
+    n = int(size) if kind == "ragged" else 65_536 if kind == "one" else 0 if kind == "empty" else (
+        4096 if kind == "cells" else 1 << 20)
+    ids = rng.integers(0, level if four else n_cells, n)
     vals = rng.random(n, dtype=np.float32) * 4e-3
     if kind == "out":
         bad = rng.random(n) < 0.2
@@ -366,10 +374,11 @@ def _k3_inputs(case, device):
     elif kind == "distinct":
         ids = rng.permutation(n_cells)[:n]
     elif kind == "sysrow":
-        occupied = np.flatnonzero(rng.random(n_cells) < 0.08)
+        occupied = np.flatnonzero(rng.random(level) < 0.08)
         rows = occupied[: occupied.size // 128 * 128].reshape(-1, 128)
         pick = np.minimum(((np.arange(n // 256) + rng.random()) * (len(rows) / (n // 256))).astype(int), len(rows) - 1)
         ids[n // 2 :] = rows[pick].reshape(-1)
+        ids += level if four else 0
     elif kind == "zeros":
         ids = rng.integers(0, 1 << 20, n)  # about one draw a cell: many hold only -0.0
         vals = rng.choice(np.array([0.0, -0.0, 1e-45, 3e-45, 1e-39, 1.2e-38], np.float32), n)
