@@ -19,7 +19,9 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    ``examples/train_ngp_nerf_occ.py``), random weights from seed 0, the
    occupancy shell of ``bench.py``; K1 must be launched on that path.
    Then every 8th chunk again, once plain and once under torch.profiler:
-   where the device time goes and how long the device sits idle.
+   where the device time goes and how long the device sits idle; and the
+   view's central 64x64 rays (4096) with ``lattice_per_round=64`` on the
+   card against the CPU.
 4. card against CPU: a 64x64 crop of the same view through the port on the
    card and on the CPU, with the same weights.
 5. the table-gradient kernels against their plain versions on the card, at
@@ -31,7 +33,13 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    that call's inputs, then held and timed at 2^19 samples over the
    encoder's F spans of 2^16 rows; and K3 (per-cell max) at 2^20 draws;
    each kernel's share of its bound, the zeroing of the output, the sorts
-   and the ``quantize_u10`` of K2's weights (ahead of K2 on the main path).
+   and the ``quantize_u10`` of K2's weights (ahead of K2 on the main path);
+   K5 once a level, as ``hash_table_lookup_sized`` and the fused encoder's
+   pallas route launch it: level 1 of the 4 (2^19 sample-levels over its
+   2^15 rows) held and timed, one lookup's backward over that level (the
+   other levels' rows zero) and one over all 4 (4 launches); and one
+   ``hash_lookup_combine`` backward (bf16, 2^21 sample-levels): K4-w8
+   launched once and held against its plain version.
 6. train: the NGP-occ train step of ``bench.py:59-294`` at its full width
    (16384 rays, 2^19 samples, bf16 compute, the fused encoder L4 x F16),
    3 warm-up steps, 30 timed steps and 8 timed occupancy updates;
@@ -50,7 +58,7 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    route: the fused encoder at float32 (K4-w3, with one occupancy update)
    and bf16 (K2), the grouped encoder at bf16 (K6) and float32 (autograd),
    and at splits 2 and 8 (K6 at 8 and 2 columns a corner), and the fused
-   encoder with ``table_grad="pallas"`` (K5, bf16),
+   encoder with ``table_grad="pallas"`` (K5 once a level, bf16),
    ``factor_pack="w8"`` (K4-w8, bf16 and float32) and ``"w3"`` (K4-w3,
    bf16): the kept samples, the loss, every gradient and the parameters
    after Adam must agree, and each route must launch its kernel.
@@ -95,7 +103,7 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    through the occupancy CLI's own ``train_step`` and ``train``: the
    textured procedural scene generated on the card at 800x800 (timed; a
    32x32 crop of a training view within one uint8 step of the CPU), up to
-   2000 steps or 120 s of train time with an eval PSNR of the test view
+   1000 steps or 120 s of train time with an eval PSNR of the test view
    every 250 steps (outside the clock); train seconds and steps to 33 dB
    (or null), the final PSNR, SSIM, MS-SSIM and LPIPS (``rnd`` without a
    weights file), kept samples/s, a late step's ms, samples per ray and the
@@ -141,8 +149,10 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    fused scatter route, each from four weight seeds (float32: loss rtol
    1e-5, gradients 3e-4, or 3e-3 at the table entries and ray origins that
    a sample feeds whose ReLU input changed sign, the ray origins' gradient
-   too) and for chunk-paired levels on the factor (K2) and
-   pallas (K5) routes (bf16: gradients 2e-2, loss 1e-5), then 30 timed
+   too), for chunk-paired levels on the factor (K2) and
+   pallas (K5 once a level) routes and for the grouped encoder's factor
+   (K6) and scatter (no kernel; the ray origins' gradient too) routes
+   (bf16: gradients 2e-2, loss 1e-5), then 30 timed
    folded steps; (d) ``traverse_grids``' macro-skip branch on phase 3's grid
    against its dense branch, K1's skip probes exact and counted.  Needs no
    other phase.
@@ -182,7 +192,7 @@ ran; phase 3 needs 2, phase 4 needs 3, phase 8 needs 6 and 7, phases 9 to
    ``build/``, loaded by the occupancy CLI's ``setup`` (``--scene garden
    --data_root``: the 360 loader at factor 4) and trained through its
    ``train`` at the unbounded block's full width (the dynamic ray count)
-   for up to 3000 steps or 90 s: train seconds, a late step's ms, the ray
+   for up to 3000 steps or 50 s: train seconds, a late step's ms, the ray
    count, kept samples/s, the visibility
    filter's drop share, the fetch stage's host ms, peak memory, a profile of
    three late steps (idle share, top kernels, the scan's gather backward),
@@ -283,13 +293,14 @@ PROP_RAYS, PROP_CHUNK, PROP_START_STEP, PROP_VARIANT_ITERS = 4096, 8192, 1000, 1
 # at 800x800 (36 train views, 1 test view), aabb +-1, a 64^3 single-level
 # grid, step 5e-3, 8192 rays and 8192 x 32 sample slots, macro budget 24;
 # the fused encoder L4 x F16 with 2^18 entries, bf16, table_grad="factor"
-# (K2); constant Adam (1e-2, eps 1e-15), Huber loss.  Bounded to 2000 steps
-# (3000 before phase 19 took its share of the run; 33 dB comes by step 250)
-# or 120 s of train time; an eval every 250 steps (outside the clock).
+# (K2); constant Adam (1e-2, eps 1e-15), Huber loss.  Bounded to 1000 steps
+# (3000 before phase 19 took its share of the run, 2000 before the whole run
+# passed 800 s; 33 dB comes by step 250) or 120 s of train time; an eval
+# every 250 steps (outside the clock).
 QUALITY_SIZE, QUALITY_TRAIN_VIEWS, QUALITY_RAYS = 800, 36, 8192
 QUALITY_GRID_RES, QUALITY_STEP, QUALITY_MACRO = 64, 5e-3, 24
 QUALITY_FIELD = dict(levels=4, feats=16, log2t=18, dtype="bf16")
-QUALITY_MAX_STEPS, QUALITY_BUDGET_S, QUALITY_EVAL_EVERY = 2000, 120.0, 250
+QUALITY_MAX_STEPS, QUALITY_BUDGET_S, QUALITY_EVAL_EVERY = 1000, 120.0, 250
 QUALITY_TARGET_DB, QUALITY_GATE_DB = 33.0, 30.0
 QUALITY_EVAL_CHUNK, QUALITY_CROP = 8192, 32
 # Phase 13: the vanilla NeRF of examples/train_mlp_nerf.py at its
@@ -822,6 +833,8 @@ def kernels_vs_plain(dev) -> dict:
     versions at the training shapes, and their times."""
     from nerfacc_tpu_torch.ops.table_grad import (
         corner_weights,
+        hash_lookup_combine,
+        hash_table_lookup_sized,
         quantize_u10,
         table_grad_pos,
         table_grad_pos_plain,
@@ -920,6 +933,59 @@ def kernels_vs_plain(dev) -> dict:
         fail(f"K5 disagrees with index_add_: {lib_err}")
     out["K5"]["library_ms"] = time_ms(library)
     del dg_f32, k5
+
+    # K5 once a level (hash_table_lookup_sized, the fused encoder's pallas
+    # route): level 1 of the 4 (2^19 sample-levels over its 2^15 rows), held
+    # and timed; then one lookup's backward over that level alone (the rows
+    # of the other levels zero) and one over all 4 (4 launches).
+    span, lvl = n_rows // 4, slice(n, 2 * n)
+    l_sorted, l_perm = torch.sort(idx[lvl] - span)
+    l_untouched = torch.bincount(idx[lvl].long() - span, minlength=span) == 0
+    out["K5-level"] = held_and_timed(
+        "K5 (one level)", table_grad_sorted, table_grad_sorted_plain, (l_sorted, l_perm, dg[lvl], span), l_untouched)
+    out["K5-level"].update(bytes=n * (4 + 2 * 128) + span * 128 * 4, ops=n * 128)
+    l_idx, l_dg = idx[lvl].long() - span, dg[lvl].float()  # the library call's inputs, outside its time
+    out["K5-level"]["library_ms"] = time_ms(
+        lambda: torch.zeros((span, 128), device=dev).index_add_(0, l_idx, l_dg))
+    del l_idx, l_dg
+    table = torch.zeros((n_rows, 128), device=dev, requires_grad=True)
+    for label, rows, n_levels, base, want in (
+        ("level 1 of 4", idx[lvl], 1, 1, table_grad_sorted_plain(l_sorted, l_perm, dg[lvl], span)),
+        ("4 levels", idx, 4, 0, table_grad_sorted_plain(sorted_idx, perm, dg, n_rows)),
+    ):
+        table.grad, before = None, table_grad_sorted.launches
+        g = hash_table_lookup_sized(table, rows.long(), compute_dtype=bf, level_span=span, n_levels=n_levels,
+                                    level_base=base)
+        g.backward(dg[lvl] if n_levels == 1 else dg)
+        torch.cuda.synchronize()
+        launches, got = table_grad_sorted.launches - before, table.grad
+        block = got[base * span : (base + n_levels) * span]
+        err = float((block - want).abs().max())
+        print(f"hash_table_lookup_sized backward ({label}): K5 launched {launches} time(s), max abs err {err:.3e} "
+              f"against its plain version", flush=True)
+        if launches != n_levels:
+            fail(f"hash_table_lookup_sized ({label}) launched K5 {launches} times, not once a level ({n_levels})")
+        if not err <= 1e-5 * float(want.abs().max()):
+            fail(f"hash_table_lookup_sized ({label}) disagrees with K5's plain version: {err}")
+        if bool(got[: base * span].any()) or bool(got[(base + n_levels) * span :].any()):
+            fail(f"hash_table_lookup_sized ({label}) wrote rows outside its levels")
+        out["K5-level"]["err"] = max(out["K5-level"]["err"], err)
+        del g, got, block, want
+
+    # K4-w8 through hash_lookup_combine: the bf16 combine with the given
+    # corner weights, one backward at 2^21 sample-levels, one launch.
+    table.grad, before = None, table_grad_w8.launches
+    hash_lookup_combine(table, idx.long(), w8, compute_dtype=bf).backward(dout_bf)
+    torch.cuda.synchronize()
+    launches = table_grad_w8.launches - before
+    want = table_grad_w8_plain(sorted_idx, perm, w8_bf, dout_bf, n_rows)
+    err = float((table.grad - want).abs().max())
+    print(f"hash_lookup_combine backward (bf16, 2^21 sample-levels): K4-w8 launched {launches} time(s), max abs "
+          f"err {err:.3e} against its plain version", flush=True)
+    if launches != 1 or not err <= 1e-5 * float(want.abs().max()):
+        fail(f"hash_lookup_combine: K4-w8 launched {launches} times (not 1) or err {err} against its plain version")
+    out["K4-w8-bf16"]["err"] = max(out["K4-w8-bf16"]["err"], err)
+    del table, want
     sort_ms = time_ms(lambda: torch.sort(idx))
     table_bytes = n_rows * 128 * 4
     # Bytes each function must move: each input read once (row, weights,
@@ -1205,7 +1271,8 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
     # (tests/test_models.py:549).
     routes = (
         # (label, field configuration, weights, compute dtype, table tol,
-        #  MLP tol, the wrapper that must launch once, or None)
+        #  MLP tol, the wrapper that must launch once (K5: once a level), or
+        #  None)
         ("float32", fused, fused_state, None, 1e-4, 3e-4, "table_grad_w3"),
         ("bf16", fused, fused_state, bf, 2e-2, 2e-2, "table_grad_u10"),
         ("grouped bf16", grouped, grouped_state, bf, 2e-2, 2e-2, "table_grad_pos"),
@@ -1240,7 +1307,8 @@ def train_card_vs_cpu(dev, fused_state, grouped_state) -> dict:
             if device.type == "cuda":
                 torch.cuda.synchronize()
                 used = {w: getattr(tg, w).launches for w in wrappers}
-                want = {w: int(w == kernel) for w in wrappers}
+                per_step = cfg["n_levels"] if kernel == "table_grad_sorted" else 1
+                want = {w: per_step * int(w == kernel) for w in wrappers}
                 if used != want:
                     fail(f"card vs CPU ({label}): table-gradient launches {used}, expected {want}")
                 launches[label] = used.get(kernel, 0)
@@ -2588,9 +2656,10 @@ def k1_vs_plain(dev):
 
 def serve(dev, est, state, crop: bool) -> float:
     """Phase 3: one 800x800 view at full width through the port, K1 launched
-    on that path, and a profile of every 8th chunk; then, if ``crop``, phase
-    4: a 64x64 crop on the card against the CPU.  Returns the view's
-    rays/s."""
+    on that path, a profile of every 8th chunk, and the view's central 64x64
+    rays (4096) rendered with ``lattice_per_round=64`` on the card against
+    the CPU; then, if ``crop``, phase 4: the same crop at the default window
+    on the card against the CPU.  Returns the view's rays/s."""
     from nerfacc_tpu_torch.models.ngp import NGPRadianceField
     from nerfacc_tpu_torch.ops.occ_query import occupancy_query
     from nerfacc_tpu_torch.rendering import occgrid_render_rays_test
@@ -2656,38 +2725,48 @@ def serve(dev, est, state, crop: bool) -> float:
         "serve", "profile_serve.txt",
     )
 
-    if not crop:
-        return n_rays / dt
-    # Phase 4: card against CPU on a 64x64 crop.
+    # The central 64x64 rays of the view, on the card and on the CPU.
     r0 = (HEIGHT - CROP) // 2
     c0 = (WIDTH - CROP) // 2
     crop_o = o_all.view(HEIGHT, WIDTH, 3)[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
     crop_d = d_all.view(HEIGHT, WIDTH, 3)[r0 : r0 + CROP, c0 : c0 + CROP].reshape(-1, 3)
-    rgb_gpu, opa_gpu, dep_gpu, n_gpu = occgrid_render_rays_test(
-        builder, est, state, crop_o, crop_d, render_bkgd=bkgd, **RENDER_KW
-    )
     cpu = torch.device("cpu")
     field_cpu = NGPRadianceField(aabb=AABB, device=cpu, **FIELD_CFG)
     field_cpu.load_state_dict({k: v.cpu() for k, v in field.state_dict().items()})
     state_cpu = est.set_binaries(est.init(cpu), state.binaries.cpu())
-    t0 = time.perf_counter()
-    rgb_cpu, opa_cpu, dep_cpu, n_cpu = occgrid_render_rays_test(
-        field_builder(field_cpu), est, state_cpu,
-        crop_o.cpu(), crop_d.cpu(), render_bkgd=bkgd.cpu(), **RENDER_KW,
-    )
-    print(f"CPU crop rendered in {time.perf_counter() - t0:.1f} s", flush=True)
-    # atol 1e-4: the card sums in another order (atomic index_add_, GEMM
-    # tiling), and those last-bit differences add up over ~1000 samples/ray.
-    errs = {
-        name: float((a.cpu() - b).abs().max())
-        for name, a, b in (("rgb", rgb_gpu, rgb_cpu), ("opacity", opa_gpu, opa_cpu),
-                           ("depth", dep_gpu, dep_cpu))
-    }
-    print(f"card vs CPU crop: max abs err {errs}, samples {n_gpu} vs {n_cpu}", flush=True)
-    if n_gpu != n_cpu:
-        fail(f"card and CPU rendered different sample counts ({n_gpu} vs {n_cpu})")
-    if max(errs.values()) > 1e-4:
-        fail(f"card and CPU disagree beyond atol 1e-4: {errs}")
+
+    def crop_card_vs_cpu(label, **kw):
+        occupancy_query.launches = 0
+        rgb_gpu, opa_gpu, dep_gpu, n_gpu = occgrid_render_rays_test(
+            builder, est, state, crop_o, crop_d, render_bkgd=bkgd, **RENDER_KW, **kw
+        )
+        k1 = occupancy_query.launches
+        t0 = time.perf_counter()
+        rgb_cpu, opa_cpu, dep_cpu, n_cpu = occgrid_render_rays_test(
+            field_builder(field_cpu), est, state_cpu,
+            crop_o.cpu(), crop_d.cpu(), render_bkgd=bkgd.cpu(), **RENDER_KW, **kw,
+        )
+        print(f"CPU {label} rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+        # atol 1e-4: the card sums in another order (atomic index_add_, GEMM
+        # tiling), and those last-bit differences add up over ~1000 samples/ray.
+        errs = {
+            name: float((a.cpu() - b).abs().max())
+            for name, a, b in (("rgb", rgb_gpu, rgb_cpu), ("opacity", opa_gpu, opa_cpu),
+                               ("depth", dep_gpu, dep_cpu))
+        }
+        print(f"card vs CPU {label}: max abs err {errs}, samples {n_gpu} vs {n_cpu}, K1 launches {k1}", flush=True)
+        if n_gpu != n_cpu:
+            fail(f"card and CPU rendered different sample counts ({label}: {n_gpu} vs {n_cpu})")
+        if max(errs.values()) > 1e-4:
+            fail(f"card and CPU disagree beyond atol 1e-4 ({label}): {errs}")
+        if n_gpu <= 0 or k1 <= 0:
+            fail(f"{label}: no samples rendered or K1 never launched")
+
+    # A window of 64 lattice steps a round, against the default
+    # min(full lattice, 8 x 32) (rendering.py:321).
+    crop_card_vs_cpu("crop, lattice_per_round=64", lattice_per_round=64)
+    if crop:  # Phase 4: card against CPU on the 64x64 crop.
+        crop_card_vs_cpu("crop")
     return n_rays / dt
 
 
@@ -2842,8 +2921,11 @@ def encoder_steps_card_vs_cpu(dev) -> None:
     the table entries and ray origins fed by a sample whose ReLU input took
     another sign on the card than on the CPU (:func:`flip_reach`); and
     chunk-paired levels (``paired_safe_levels``) on the fused bf16 factor
-    (K2) and pallas (K5) routes, loss within rtol 1e-5 and gradients within
-    2e-2 (phase 8's bf16 gate).  Each route launches exactly its kernels."""
+    (K2, once a lookup) and pallas (K5, once a level) routes, and the
+    grouped encoder in bf16 with ``table_grad="factor"`` (K6) and
+    ``"scatter"`` (no kernel, with the gradient of the ray origins), loss
+    within rtol 1e-5 and gradients within 2e-2 (phase 8's bf16 gate).  Each
+    route launches exactly its kernels."""
     from nerfacc_tpu_torch.estimators.occ_grid import OccGridEstimator
     from nerfacc_tpu_torch.ops import table_grad as tg
 
@@ -2869,7 +2951,9 @@ def encoder_steps_card_vs_cpu(dev) -> None:
         (f"fused factor bf16, {paired} paired", TRAIN_FIELD_CFG, bf, 2e-2, paired, {"table_grad_u10": 2}, False,
          (0,)),
         (f"fused pallas bf16, {paired} paired", dict(TRAIN_FIELD_CFG, table_grad="pallas"), bf, 2e-2, paired,
-         {"table_grad_sorted": 2}, False, (0,)),
+         {"table_grad_sorted": TRAIN_FIELD_CFG["n_levels"]}, False, (0,)),
+        ("grouped factor bf16", GROUPED_FIELD_CFG, bf, 2e-2, 0, {"table_grad_pos": 1}, False, (0,)),
+        ("grouped scatter bf16", dict(GROUPED_FIELD_CFG, table_grad="scatter"), bf, 2e-2, 0, {}, True, (0,)),
     )
     results = []
     for route_label, cfg, cdt, tol, pl, kernels, pos, seeds in routes:
@@ -3396,12 +3480,12 @@ def train_barf_phase(dev, card_line) -> dict:
 # from 1024 up to 8192 rays, up to 2^21 traversal slots and 2^18 for the
 # survivors, where the JAX example fixes 8192 rays and 2^18 slots),
 # cut to CAPTURE_MAX_STEPS steps (the schedule's length) or CAPTURE_BUDGET_S
-# of train time.  The views of images_4/ are 504x336 (a real capture's
+# of train time (90 s before the whole run passed 800 s).  The views of images_4/ are 504x336 (a real capture's
 # factor-4 views are about 1297x840); images/ holds the same PNGs under
 # COLMAP's names, as the loader reads only their names there.
 CAPTURE_RINGS = ((64, -15.0), (64, -30.0), (64, -45.0))  # (views, elevation in degrees)
 CAPTURE_W4, CAPTURE_H4, CAPTURE_RADIUS, CAPTURE_BACKDROP = 504, 336, 2.5, 18.0
-CAPTURE_MAX_STEPS, CAPTURE_BUDGET_S, CAPTURE_SEGMENT = 3000, 90.0, 250
+CAPTURE_MAX_STEPS, CAPTURE_BUDGET_S, CAPTURE_SEGMENT = 3000, 50.0, 250
 CAPTURE_GATE_DB = 24.0  # the eval-PSNR floor written before the first run
 CAPTURE_SCENE = "garden"
 JPEG_FIXTURES = "tests/fixtures/jpeg"
@@ -4455,6 +4539,10 @@ def main(argv=None) -> None:
                 ("table_grad_w8_bf16", "K4-w8-bf16", "table_grad.cu", "572", route_launches["w8 bf16"]),
                 ("table_grad_w8", "K4-w8", "table_grad.cu", "572", route_launches["w8 float32"]),
                 ("table_grad_sorted", "K5", "table_grad_sorted.cu", "245", route_launches["pallas bf16"]),
+                # The pallas route launches K5 once a level (phase 8): one
+                # level's shape.
+                ("table_grad_sorted_level", "K5-level", "table_grad_sorted.cu", "245",
+                 route_launches["pallas bf16"]),
                 ("cell_max", "K3", "cell_max.cu", "1918", train_launches["K3"]),
             )
         ] + [

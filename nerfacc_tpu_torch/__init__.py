@@ -38,8 +38,6 @@ The names below are the JAX package's public surface
 (``nerfacc_tpu/__init__.py``), under the same names.
 """
 
-__version__ = "0.1.0"
-
 from .cameras import opencv_lens_undistortion, opencv_lens_undistortion_fisheye
 from .data_specs import RayIntervals, RaySamples
 from .estimators.occ_grid import OccGridEstimator, OccGridState
@@ -57,6 +55,7 @@ from .scan import (
     seg_inclusive_prod,
     seg_inclusive_sum,
 )
+from .version import __version__
 from .volrend import (
     accumulate_along_rays,
     render_transmittance_from_alpha,

@@ -22,7 +22,7 @@ import torch
 from ..device import resolve_device
 from .colmap import load_sparse
 from .jpeg import read_image
-from .utils import batch_on_device, camera_rays
+from .utils import Rays, batch_on_device, camera_rays, generate_rays  # noqa: F401  (Rays, generate_rays: as the JAX module)
 
 
 def similarity_from_cameras(c2w: np.ndarray, strict_scaling: bool = False):

@@ -29,7 +29,7 @@ import torch
 from ..device import resolve_device
 from . import _native
 from .png import read_png
-from .utils import batch_on_device, camera_rays
+from .utils import Rays, batch_on_device, camera_rays, generate_rays  # noqa: F401  (Rays, generate_rays: as the JAX module)
 
 
 def _load_renderings(root_fp: str, subject_id: str, split: str):

@@ -1,3 +1,4 @@
+from .base import AbstractEstimator
 from .occ_grid import OccGridEstimator, OccGridState
 from .prop_net import PropNetEstimator, get_proposal_requires_grad_fn
 

@@ -18,9 +18,10 @@ chosen by ``table_grad``:
   ``factor_pack`` says (``"u10"``: K2 under bf16, K4-w3 under float32;
   ``"w3"``: K4-w3; ``"w8"``: K4-w8), with zero gradient to the sample
   positions, as the JAX package's ``table_grad="factor"`` path does;
-- ``"pallas"``: :func:`~nerfacc_tpu_torch.ops.table_grad.hash_table_lookup`,
+- ``"pallas"``: :func:`~nerfacc_tpu_torch.ops.table_grad.hash_table_lookup_sized`,
   the gather whose backward sums the materialised ``(N, 128)`` cotangent
-  with kernel K5, as the JAX package's ``table_grad="pallas"`` path does;
+  with kernel K5, one sort and one launch a level, as the JAX package's
+  ``table_grad="pallas"`` path does;
 - ``"scatter"`` and ``"auto"``: the plain gather and combine under
   autograd, as the JAX package's autodiff differentiates them; the only
   route that gives the sample positions a gradient.
@@ -57,7 +58,7 @@ from ..ops.table_grad import (
     gather_combine,
     hash_lookup_combine3,
     hash_lookup_combine_pos,
-    hash_table_lookup,
+    hash_table_lookup_sized,
 )
 
 Tensor = torch.Tensor
@@ -341,7 +342,10 @@ class HashGridEncoderFused(nn.Module):
                 self.table, rows, wx, wy, wz, 1e-4, self.compute_dtype, self.factor_pack
             )
         elif self.table_grad == "pallas":
-            out = combine(hash_table_lookup(self.table, rows, 1e-4, self.compute_dtype), wx, wy, wz)
+            g = hash_table_lookup_sized(
+                self.table, rows, 1e-4, self.compute_dtype, level_span=self.table_size, n_levels=k, level_base=lo
+            )
+            out = combine(g, wx, wy, wz)
         else:
             out = gather_combine(self.table, rows, wx, wy, wz, 1e-4, self.compute_dtype)
         return out.reshape(k, m, -1)
@@ -404,8 +408,11 @@ class HashGridEncoderGrouped(nn.Module):
     ``1 - |2 (h - floor h) - 1|``, ``h = x r / 2`` (the JAX package's default
     ``tri`` weights, the only ones whose table gradient it computes right).
 
-    Under bf16 the table gradient goes through kernel K6 with zero gradient
-    to the positions; in float32 autograd differentiates the gather
+    Under bf16 and ``table_grad="factor"`` (the default) the table gradient
+    goes through kernel K6 with zero gradient to the positions; in float32,
+    or with any other ``table_grad`` (the JAX package's ``"scatter"``
+    ``grad_mode``, ``hash_soa.py:641-643``), autograd differentiates the
+    gather in the compute dtype and the positions get their gradient
     (:func:`~nerfacc_tpu_torch.ops.table_grad.hash_lookup_combine_pos`).
     The table is the JAX encoder's ``(G * T, 128)`` ``table``, row for row,
     and the dense-index decision is its wrapped int32 one
@@ -423,6 +430,7 @@ class HashGridEncoderGrouped(nn.Module):
         keys_per_row: int = 4,
         key_collision_cap: float = 16.0,
         compute_dtype: Optional[torch.dtype] = None,
+        table_grad: str = "factor",
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
     ) -> None:
@@ -432,7 +440,10 @@ class HashGridEncoderGrouped(nn.Module):
         J = ROW_WIDTH // (8 * F)
         if 8 * F * J != ROW_WIDTH or n_levels % J:
             raise ValueError(f"grouped rows need 8 * F to divide {ROW_WIDTH} and n_levels % {J} == 0")
+        if table_grad not in TABLE_GRADS:
+            raise ValueError(f"table_grad {table_grad!r} not in {TABLE_GRADS}")
         self.compute_dtype = check_compute_dtype("HashGridEncoderGrouped", compute_dtype)
+        self.grad_mode = "factor" if table_grad == "factor" else "scatter"
         self.n_levels, self.n_features_per_level = n_levels, F
         self.sub_levels = J
         self.table_size = T = 1 << log2_hashmap_size
@@ -495,7 +506,7 @@ class HashGridEncoderGrouped(nn.Module):
         out = hash_lookup_combine_pos(
             self.table, self.fetch_rows(xs, ys, zs).reshape(-1), xs, ys, zs, self.fetches,
             self.n_features_per_level, 1e-4, self.compute_dtype,
-            consts=FetchConsts(self._fetch_res, self._fetch_is_key, self._fetch_win),
+            consts=FetchConsts(self._fetch_res, self._fetch_is_key, self._fetch_win), grad_mode=self.grad_mode,
         )  # (nf * n, jg * F), fetch-major
         out = out.view(nf, n, -1).transpose(0, 1)  # level-major features
         return out.reshape(batch_shape + (self.latent_dim,))

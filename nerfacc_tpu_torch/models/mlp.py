@@ -19,7 +19,7 @@ parameters one to one.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
@@ -49,7 +49,8 @@ class MLP(nn.Module):
     """ReLU MLP with periodic skip connections (``mlp.py:25-56``): after
     hidden layer ``i`` with ``i % skip_layer == 0 and i > 0`` the input is
     concatenated to the features, so the next layer reads ``net_width +
-    input_dim`` of them.  ``output_init_scale`` draws the output kernel
+    input_dim`` of them.  ``hidden_activation`` follows every hidden layer
+    (ReLU by default).  ``output_init_scale`` draws the output kernel
     uniform on ``[0, output_init_scale)``."""
 
     def __init__(
@@ -59,6 +60,7 @@ class MLP(nn.Module):
         net_depth: int = 8,
         net_width: int = 256,
         skip_layer: Optional[int] = 4,
+        hidden_activation: Callable[[Tensor], Tensor] = torch.relu,
         output_enabled: bool = True,
         output_init_scale: Optional[float] = None,
         *,
@@ -68,6 +70,7 @@ class MLP(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.skip_layer, self.output_enabled = skip_layer, output_enabled
+        self.hidden_activation = hidden_activation
         layers, width = [], input_dim
         for i in range(net_depth):
             layers.append(_dense(width, net_width, None, generator))
@@ -84,7 +87,7 @@ class MLP(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         inputs = x
         for i in range(self.net_depth):
-            x = torch.relu(self.layers[i](x))
+            x = self.hidden_activation(self.layers[i](x))
             if self._skips_after(i):
                 x = torch.cat([x, inputs], dim=-1)
         if self.output_enabled:

@@ -34,6 +34,7 @@ from .hash_soa import (
     HashGridEncoderFused,
     HashGridEncoderGrouped,
     HashGridEncoderSoA,
+    TABLE_GRADS,
     paired_safe_level_count,
 )
 
@@ -98,11 +99,20 @@ def _norm3(x: Tensor) -> Tensor:
     return torch.sqrt(acc.double()).float()
 
 
-def contract_to_unisphere(x: Tensor, aabb: Tensor, eps: float = 1e-6) -> Tensor:
-    """MipNeRF-360 scene contraction of ``(..., 3)`` points to ``[0, 1]^3``."""
+def contract_to_unisphere(
+    x: Tensor, aabb: Tensor, ord: Union[int, float, None] = 2, eps: float = 1e-6
+) -> Tensor:
+    """MipNeRF-360 scene contraction of ``(..., 3)`` points to ``[0, 1]^3``
+    (``ngp.py:72-82``), with the magnitude the vector norm of order ``ord``
+    (``jnp.linalg.norm``'s: 2 or None, 1, ``inf``, ``-inf``, 0 or any other
+    p).  The 2-norm is :func:`_norm3`, the same on the card as on the CPU."""
     x = (x - aabb[:3]) / (aabb[3:] - aabb[:3])
     x = x * 2 - 1  # aabb at [-1, 1]
-    mag = _norm3(x).clamp(min=eps)
+    if ord is None or ord == 2:
+        mag = _norm3(x)
+    else:
+        mag = torch.linalg.vector_norm(x, ord=ord, dim=-1, keepdim=True)
+    mag = mag.clamp(min=eps)
     contracted = (2 - 1 / mag) * (x / mag)
     x = torch.where(mag > 1, contracted, x)
     return x / 4 + 0.5
@@ -182,9 +192,10 @@ def _make_encoder(
 ) -> nn.Module:
     """A field's encoder, built as the JAX package's ``setup`` builds it
     (``ngp.py:117-138``): ``log2_hashmap_size - 3`` for the corner-per-row
-    encoders, ``compute_dtype`` for fused and grouped only, the table
-    gradient's route for fused (grouped has one, K6 under bf16; the others
-    take autograd's)."""
+    encoders, ``compute_dtype`` and ``table_grad`` for fused and grouped
+    only (the others take autograd's table gradient whatever ``table_grad``
+    says, as the JAX package passes it to no other encoder), ``factor_pack``
+    for fused only."""
     if encoder_type not in ENCODERS:
         raise ValueError(f"encoder_type {encoder_type!r} not in {tuple(ENCODERS)}")
     kw = dict(
@@ -198,10 +209,12 @@ def _make_encoder(
     )
     if encoder_type == "fused":
         return HashGridEncoderFused(compute_dtype=compute_dtype, table_grad=table_grad, factor_pack=factor_pack, **kw)
-    if (table_grad, factor_pack) != ("factor", "u10"):
-        raise ValueError(f"the {encoder_type} encoder takes no table_grad or factor_pack")
+    if factor_pack != "u10":
+        raise ValueError(f"the {encoder_type} encoder takes no factor_pack")
+    if table_grad not in TABLE_GRADS:
+        raise ValueError(f"table_grad {table_grad!r} not in {TABLE_GRADS}")
     if encoder_type == "grouped":
-        return HashGridEncoderGrouped(compute_dtype=compute_dtype, **kw)
+        return HashGridEncoderGrouped(compute_dtype=compute_dtype, table_grad=table_grad, **kw)
     return ENCODERS[encoder_type](**kw)
 
 

@@ -8,9 +8,10 @@ from .occ_query import (
 from .table_grad import (
     cell_max,
     cell_max_plain,
+    hash_lookup_combine,
     hash_lookup_combine3,
     hash_lookup_combine_pos,
-    hash_table_lookup,
+    hash_table_lookup_sized,
     table_grad_pos,
     table_grad_pos_plain,
     table_grad_sorted,
@@ -27,9 +28,10 @@ __all__ = [
     "bitpack_grid",
     "cell_max",
     "cell_max_plain",
+    "hash_lookup_combine",
     "hash_lookup_combine3",
     "hash_lookup_combine_pos",
-    "hash_table_lookup",
+    "hash_table_lookup_sized",
     "occupancy_query",
     "occupancy_query_plain",
     "table_grad_pos",

@@ -25,18 +25,30 @@ Port of ``nerfacc_tpu/ops/table_grad.py``:
   - ``"w8"``: K4 in ``w8`` mode, :func:`table_grad_w8` (replaces
     ``table_grad_factors_sorted(wpack="w8")``): the eight corner weights,
     cast once to the compute type.
-- :func:`hash_table_lookup` is the gather of the fused encoder's
+- :func:`hash_lookup_combine` is the same gather and combine with any
+  ``(N, 8)`` corner weights (``table_grad.py:851-1010``): its backward sends
+  the weights and cotangents to K4 in ``w8`` mode, zero gradient to the
+  weights.
+- :func:`hash_table_lookup_sized` is the gather of the fused encoder's
   ``table_grad="pallas"`` route (``table_grad.py:332-437``): autograd of the
   combine materialises the ``(N, 128)`` cotangent, and its backward sorts the
   rows and sums them with K5, :func:`table_grad_sorted` (replaces
   ``table_grad_sorted``).
 - :func:`hash_lookup_combine_pos` is the grouped encoder's gather plus
-  multi-sub-level combine (``table_grad.py:1605-1837``).  Under bf16 its
-  backward sorts (row, fetch) pairs and calls K6, :func:`table_grad_pos`
-  (replaces ``table_grad_factors_sorted_pos``), which rebuilds every weight
-  from the sample positions.
+  multi-sub-level combine (``table_grad.py:1605-1837``).  Under bf16 and
+  ``grad_mode="factor"`` its backward sorts (row, fetch) pairs and calls K6,
+  :func:`table_grad_pos` (replaces ``table_grad_factors_sorted_pos``), which
+  rebuilds every weight from the sample positions.
 - K3, :func:`cell_max` (replaces ``cell_max_sorted``): the exact
   ``full(-1).at[ids].max(vals)`` for non-negative ``vals``.
+
+The lookups with a factor or K5 backward take the JAX package's level split
+(``level_span``, ``n_levels``, ``level_base``): the indices are promised
+level-major, ``n_levels`` equal slices, slice ``j`` in rows ``[(level_base +
+j) level_span, (level_base + j + 1) level_span)``; the backward then sorts
+each slice on its own and launches the kernel once a slice on
+``level_span`` rows, and the rows outside the slices' span get zero
+gradient.  When ``N % n_levels != 0`` the whole table is sorted at once.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (K2
 ``csrc/table_grad_u10.cu``, K4 ``csrc/table_grad.cu``, K5
@@ -63,6 +75,7 @@ F_PER_ROW = 16  # features per corner: 8 corners x 16 = a 128-wide table row
 ROW_WIDTH = 8 * F_PER_ROW
 _INV_1023 = float(np.float32(1.0 / 1023.0))  # the JAX kernel's dequantisation step
 FACTOR_PACKS = ("u10", "w3", "w8")
+GRAD_MODES = ("factor", "scatter")  # the grouped lookup's backward: K6, or autograd's
 
 
 def corner_weights(wx: Tensor, wy: Tensor, wz: Tensor) -> Tensor:
@@ -188,6 +201,42 @@ def _check_aligned(name: str, **tensors: Tensor) -> None:
     for what, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must be 16-byte aligned (the kernel reads it 16 bytes at a time)")
+
+
+def _level_split(
+    idx: Tensor, n_rows: int, level_span: int, n_levels: int, level_base: int, reduce
+) -> Tensor:
+    """The ``(n_rows, 128)`` float32 table gradient of a lookup at rows
+    ``idx``, from ``reduce(part, sorted_idx, perm, rows)``, which sums the
+    samples ``idx[part]`` into a ``(rows, 128)`` block given their rows
+    sorted ascending (int32, less the block's first row) and the
+    permutation that sorted them.  ``level_span == 0``: one part, the whole
+    table; else one part a level (the module docstring's split), the blocks
+    stacked between zero rows (``table_grad.py:388-407``)."""
+    if not level_span:
+        sorted_idx, perm = torch.sort(idx.to(torch.int32))
+        return reduce(slice(None), sorted_idx, perm, n_rows)
+    m = idx.shape[0] // n_levels
+    blocks = []
+    for j in range(n_levels):
+        part = slice(j * m, (j + 1) * m)
+        sorted_idx, perm = torch.sort((idx[part] - (level_base + j) * level_span).to(torch.int32))
+        blocks.append(reduce(part, sorted_idx, perm, level_span))
+    lo, hi = level_base * level_span, (level_base + n_levels) * level_span
+    return torch.cat([blocks[0].new_zeros((lo, ROW_WIDTH)), *blocks, blocks[0].new_zeros((n_rows - hi, ROW_WIDTH))])
+
+
+def _check_level_split(name: str, n_rows: int, n: int, level_span: int, n_levels: int, level_base: int) -> tuple:
+    """The level split as the lookups take it: ``(0, 1, 0)`` (the whole
+    table) when ``level_span`` is 0 or ``n`` samples do not split into
+    ``n_levels`` equal slices, as the JAX package falls back; raises when the
+    slices' rows do not fit in the table."""
+    if not level_span or n % n_levels:
+        return 0, 1, 0
+    if level_span < 0 or n_levels < 1 or level_base < 0 or (level_base + n_levels) * level_span > n_rows:
+        raise ValueError(f"{name}: levels {level_base} to {level_base + n_levels} of {level_span} rows "
+                         f"do not fit in a table of {n_rows} rows")
+    return level_span, n_levels, level_base
 
 
 # ---------------------------------------------------------------------------
@@ -329,33 +378,39 @@ table_grad_w8.launches = 0  # kernel launches since the count was last reset
 
 def table_grad_factors(
     idx: Tensor, wx: Tensor, wy: Tensor, wz: Tensor, dout: Tensor, n_rows: int,
-    factor_pack: str = "u10",
+    factor_pack: str = "u10", level_span: int = 0, n_levels: int = 1, level_base: int = 0,
 ) -> Tensor:
     """The table gradient of :func:`hash_lookup_combine3`: sort the rows
     (``torch.sort``, outside the kernel, as the JAX package sorts outside
     its Pallas kernel), then K2 (``"u10"`` under bf16), K4-w3 (``"u10"``
-    under float32, ``"w3"``) or K4-w8 (``"w8"``), in ``dout``'s type."""
+    under float32, ``"w3"``) or K4-w8 (``"w8"``), in ``dout``'s type; once,
+    or once a level under a level split (:func:`_level_split`)."""
     if dout.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"table_grad_factors: dout must be bf16 or float32, got {dout.dtype}")
     if factor_pack not in FACTOR_PACKS:
         raise ValueError(f"table_grad_factors: factor_pack {factor_pack!r} not in {FACTOR_PACKS}")
-    sorted_idx, perm = torch.sort(idx.to(torch.int32))
-    dout = dout.contiguous()
-    if factor_pack == "u10" and dout.dtype == torch.bfloat16:
-        return table_grad_u10(sorted_idx, perm, quantize_u10(wx, wy, wz), dout, n_rows)
-    if factor_pack == "w8":
-        w8 = corner_weights(wx, wy, wz).to(dout.dtype).contiguous()
-        return table_grad_w8(sorted_idx, perm, w8, dout, n_rows)
-    w3 = [w.to(dout.dtype).contiguous() for w in (wx, wy, wz)]
-    return table_grad_w3(sorted_idx, perm, *w3, dout, n_rows)
+
+    def reduce(part, sorted_idx, perm, rows):
+        ws, d = (wx[part], wy[part], wz[part]), dout[part].contiguous()
+        if factor_pack == "u10" and d.dtype == torch.bfloat16:
+            return table_grad_u10(sorted_idx, perm, quantize_u10(*ws), d, rows)
+        if factor_pack == "w8":
+            return table_grad_w8(sorted_idx, perm, corner_weights(*ws).to(d.dtype).contiguous(), d, rows)
+        return table_grad_w3(sorted_idx, perm, *[w.to(d.dtype).contiguous() for w in ws], d, rows)
+
+    return _level_split(idx, n_rows, level_span, n_levels, level_base, reduce)
+
+
+def combine8(g: Tensor, w8: Tensor) -> Tensor:
+    """Gathered rows ``g (N, 8 F)`` combined over their 8 corners with the
+    corner weights ``w8 (N, 8)`` cast to ``g``'s type: ``(N, F)``."""
+    return torch.einsum("kc,kcf->kf", w8.to(g.dtype), g.view(-1, 8, g.shape[1] // 8))
 
 
 def combine(g: Tensor, wx: Tensor, wy: Tensor, wz: Tensor) -> Tensor:
-    """Gathered rows ``g (N, 8 F)`` combined over their 8 corners with the
-    trilinear weights of ``(wx, wy, wz)`` (float32, cast to ``g``'s type):
-    ``(N, F)``."""
-    w = corner_weights(wx, wy, wz).to(g.dtype)
-    return torch.einsum("kc,kcf->kf", w, g.view(-1, 8, g.shape[1] // 8))
+    """:func:`combine8` with the trilinear weights of ``(wx, wy, wz)``
+    (float32)."""
+    return combine8(g, corner_weights(wx, wy, wz))
 
 
 def _offset_table(table: Tensor, offset: float, compute_dtype: Optional[torch.dtype]) -> Tensor:
@@ -377,20 +432,19 @@ def gather_combine(
 
 class _LookupCombine3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx, wx, wy, wz, offset, compute_dtype, factor_pack):
+    def forward(ctx, table, idx, wx, wy, wz, offset, compute_dtype, factor_pack, split):
         out = gather_combine(table, idx, wx, wy, wz, offset, compute_dtype)
         ctx.save_for_backward(idx, wx, wy, wz)
-        ctx.n_rows = table.shape[0]
-        ctx.factor_pack = factor_pack
+        ctx.n_rows, ctx.factor_pack, ctx.split = table.shape[0], factor_pack, split
         return out
 
     @staticmethod
     def backward(ctx, dout):
         idx, wx, wy, wz = ctx.saved_tensors
         with record_function("table_grad"):
-            dtable = table_grad_factors(idx, wx, wy, wz, dout, ctx.n_rows, ctx.factor_pack)
+            dtable = table_grad_factors(idx, wx, wy, wz, dout, ctx.n_rows, ctx.factor_pack, *ctx.split)
         zero = [torch.zeros_like(w) if need else None for w, need in zip((wx, wy, wz), ctx.needs_input_grad[2:5])]
-        return (dtable, None, *zero, None, None, None)
+        return (dtable, None, *zero, None, None, None, None)
 
 
 def check_compute_dtype(name: str, compute_dtype) -> Optional[torch.dtype]:
@@ -410,19 +464,74 @@ def hash_lookup_combine3(
     offset: float = 0.0,
     compute_dtype: Optional[torch.dtype] = None,
     factor_pack: str = "u10",
+    level_span: int = 0,
+    n_levels: int = 1,
+    level_base: int = 0,
 ) -> Tensor:
     """Gather rows ``idx`` of ``table - offset`` (``(n_rows, 128)`` float32,
     cast to ``compute_dtype`` if given) and combine each row's 8 corners of
     16 features with the trilinear weights of ``(wx, wy, wz)``: ``(N, 16)``
     in the compute dtype.  Backward: the table gradient through K2 or K4 as
-    ``factor_pack`` says (:func:`table_grad_factors`), zero to the weights,
-    none to ``idx``."""
+    ``factor_pack`` says (:func:`table_grad_factors`), once or once a level
+    (the module docstring's level split), zero to the weights, none to
+    ``idx``."""
+    name = "hash_lookup_combine3"
     if table.ndim != 2 or table.shape[1] != ROW_WIDTH:
-        raise ValueError(f"hash_lookup_combine3: table must be (n_rows, {ROW_WIDTH})")
+        raise ValueError(f"{name}: table must be (n_rows, {ROW_WIDTH})")
     if factor_pack not in FACTOR_PACKS:
-        raise ValueError(f"hash_lookup_combine3: factor_pack {factor_pack!r} not in {FACTOR_PACKS}")
-    cdt = check_compute_dtype("hash_lookup_combine3", compute_dtype)
-    return _LookupCombine3.apply(table, idx, wx, wy, wz, offset, cdt, factor_pack)
+        raise ValueError(f"{name}: factor_pack {factor_pack!r} not in {FACTOR_PACKS}")
+    cdt = check_compute_dtype(name, compute_dtype)
+    split = _check_level_split(name, table.shape[0], idx.shape[0], level_span, n_levels, level_base)
+    return _LookupCombine3.apply(table, idx, wx, wy, wz, offset, cdt, factor_pack, split)
+
+
+class _LookupCombine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, w, offset, compute_dtype, split):
+        ctx.save_for_backward(idx, w)
+        ctx.n_rows, ctx.split = table.shape[0], split
+        with record_function("gather_combine"):
+            return combine8(_offset_table(table, offset, compute_dtype)[idx], w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        idx, w = ctx.saved_tensors
+        # The factors in the compute type (the cotangent's): bf16 or float32.
+        w8, d = w.to(dout.dtype).contiguous(), dout.contiguous()
+        with record_function("table_grad"):
+            dtable = _level_split(
+                idx, ctx.n_rows, *ctx.split,
+                lambda part, sorted_idx, perm, rows: table_grad_w8(sorted_idx, perm, w8[part], d[part], rows),
+            )
+        return dtable, None, torch.zeros_like(w) if ctx.needs_input_grad[2] else None, None, None, None
+
+
+def hash_lookup_combine(
+    table: Tensor,
+    idx: Tensor,
+    w: Tensor,
+    offset: float = 0.0,
+    compute_dtype: Optional[torch.dtype] = None,
+    level_span: int = 0,
+    n_levels: int = 1,
+    level_base: int = 0,
+) -> Tensor:
+    """Gather rows ``idx`` of ``table - offset`` (``(n_rows, 128)`` float32,
+    cast to ``compute_dtype`` if given) and combine each row's 8 corners of
+    16 features with the given corner weights ``w (N, 8)`` (any weights, cast
+    to the compute dtype): ``(N, 16)`` in the compute dtype
+    (``table_grad.py:851-1010``).  Backward: the table gradient through
+    K4-w8 (:func:`table_grad_w8`) from ``w`` and the cotangent in the
+    compute type, once or once a level (the module docstring's level
+    split); zero gradient to ``w`` by contract, none to ``idx``."""
+    name = "hash_lookup_combine"
+    if table.ndim != 2 or table.shape[1] != ROW_WIDTH:
+        raise ValueError(f"{name}: table must be (n_rows, {ROW_WIDTH})")
+    if w.shape != (idx.shape[0], 8):
+        raise ValueError(f"{name}: w must be (N, 8) corner weights of idx's N samples")
+    cdt = check_compute_dtype(name, compute_dtype)
+    split = _check_level_split(name, table.shape[0], idx.shape[0], level_span, n_levels, level_base)
+    return _LookupCombine.apply(table, idx, w, offset, cdt, split)
 
 
 # ---------------------------------------------------------------------------
@@ -468,31 +577,43 @@ table_grad_sorted.launches = 0  # kernel launches since the count was last reset
 
 class _Lookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx, offset, compute_dtype):
+    def forward(ctx, table, idx, offset, compute_dtype, split):
         ctx.save_for_backward(idx)
-        ctx.n_rows = table.shape[0]
+        ctx.n_rows, ctx.split = table.shape[0], split
         return _offset_table(table, offset, compute_dtype)[idx]
 
     @staticmethod
     def backward(ctx, dg):
         (idx,) = ctx.saved_tensors
         with record_function("table_grad"):
-            sorted_idx, perm = torch.sort(idx.to(torch.int32))
-            dtable = table_grad_sorted(sorted_idx, perm, dg.contiguous(), ctx.n_rows)
-        return dtable, None, None, None
+            dtable = _level_split(
+                idx, ctx.n_rows, *ctx.split,
+                lambda part, sorted_idx, perm, rows: table_grad_sorted(sorted_idx, perm, dg[part].contiguous(), rows),
+            )
+        return dtable, None, None, None, None
 
 
-def hash_table_lookup(
-    table: Tensor, idx: Tensor, offset: float = 0.0, compute_dtype: Optional[torch.dtype] = None
+def hash_table_lookup_sized(
+    table: Tensor,
+    idx: Tensor,
+    offset: float = 0.0,
+    compute_dtype: Optional[torch.dtype] = None,
+    level_span: int = 0,
+    n_levels: int = 1,
+    level_base: int = 0,
 ) -> Tensor:
     """Rows ``idx`` of ``table - offset`` (``(n_rows, 128)`` float32, cast to
     ``compute_dtype`` if given): ``(N, 128)``.  Backward: the cotangent of
     the rows, in the compute dtype as autograd of the consumer gives it,
     sorted by row and summed in float32 by K5 (the JAX package's
-    ``table_grad="pallas"`` route, ``hash_table_lookup_sized``)."""
+    ``table_grad="pallas"`` route, ``table_grad.py:332-437``): one sort and
+    one launch over the whole table, or one a level on ``level_span`` rows
+    under the module docstring's level split."""
+    name = "hash_table_lookup_sized"
     if table.ndim != 2 or table.shape[1] != ROW_WIDTH:
-        raise ValueError(f"hash_table_lookup: table must be (n_rows, {ROW_WIDTH})")
-    return _Lookup.apply(table, idx, offset, check_compute_dtype("hash_table_lookup", compute_dtype))
+        raise ValueError(f"{name}: table must be (n_rows, {ROW_WIDTH})")
+    split = _check_level_split(name, table.shape[0], idx.shape[0], level_span, n_levels, level_base)
+    return _Lookup.apply(table, idx, offset, check_compute_dtype(name, compute_dtype), split)
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +855,7 @@ def hash_lookup_combine_pos(
     offset: float = 0.0,
     compute_dtype: Optional[torch.dtype] = None,
     consts: Optional[FetchConsts] = None,
+    grad_mode: str = "factor",
 ) -> Tensor:
     """The grouped encoder's fused gather and multi-sub-level combine
     (``hash_lookup_combine_pos``, ``table_grad.py:1803-1837``): ``table``
@@ -741,12 +863,14 @@ def hash_lookup_combine_pos(
     fetch-major, ``xs, ys, zs (n,)`` float32 positions in ``[0, 1]``.
     Returns ``(n_fetches * n, jg * F)`` in the compute dtype.
 
-    Under bf16 the backward sorts the (row, fetch) pairs and sends the table
-    gradient through K6, with zero gradient to the positions (the JAX
-    package's factor route).  In float32 autograd differentiates
-    :func:`gather_combine_pos` as written, as the JAX package differentiates
-    its plain combine (``table_grad.py:1722-1728``): no kernel on that route
-    there either.  ``consts`` are :func:`fetch_consts` of ``fetches`` on the
+    Under bf16 and ``grad_mode="factor"`` the backward sorts the (row,
+    fetch) pairs and sends the table gradient through K6, with zero gradient
+    to the positions (the JAX package's factor route).  In float32, or with
+    ``grad_mode="scatter"``, autograd differentiates
+    :func:`gather_combine_pos` as written in the compute dtype, as the JAX
+    package differentiates its plain combine (``table_grad.py:1722-1728``):
+    no kernel on that route there either, and the positions get their
+    gradient.  ``consts`` are :func:`fetch_consts` of ``fetches`` on the
     positions' device (built here when not given)."""
     if table.ndim != 2 or table.shape[1] != ROW_WIDTH:
         raise ValueError(f"hash_lookup_combine_pos: table must be (n_rows, {ROW_WIDTH})")
@@ -754,10 +878,12 @@ def hash_lookup_combine_pos(
     if idx.shape != (len(fetches) * xs.shape[0],):
         raise ValueError("hash_lookup_combine_pos: idx must hold n_fetches * n rows, fetch-major")
     cdt = check_compute_dtype("hash_lookup_combine_pos", compute_dtype)
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"hash_lookup_combine_pos: grad_mode {grad_mode!r} not in {GRAD_MODES}")
     if consts is None:
         consts = fetch_consts(fetches, xs.device)
-    if cdt is None:
-        return gather_combine_pos(table, idx, xs, ys, zs, consts, F, offset, None)
+    if cdt is None or grad_mode == "scatter":
+        return gather_combine_pos(table, idx, xs, ys, zs, consts, F, offset, cdt)
     return _LookupCombinePos.apply(table, idx, xs, ys, zs, tuple(fetches), consts, F, offset, cdt)
 
 

@@ -43,6 +43,7 @@ from torch.profiler import record_function
 from .estimators.occ_grid import OccGridEstimator, OccGridState
 from .estimators.prop_net import PropNetEstimator
 from .grid import chunked_ray_components, num_ladder_steps, traverse_grids
+from .grid import traverse_and_compact  # noqa: F401  (importable from here, as from the JAX module)
 from .pack import compact_indices_from_counts
 from .volrend import (
     accumulate_along_rays,
@@ -206,8 +207,13 @@ def occgrid_render_rays_test(
     cone_angle: float = 0.0,
     alpha_thre: float = 0.0,
     early_stop_eps: float = 1e-4,
+    lattice_per_round: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, int]:
     """Render ``rays_o/rays_d (n, 3)`` on their device.
+
+    A round traverses ``samples_per_round`` samples a ray within a window of
+    ``lattice_per_round`` lattice steps (by default ``min(full lattice,
+    8 * samples_per_round)``, ``rendering.py:321``).
 
     Returns ``(rgb (n,3), opacity (n,1), depth (n,1), total_samples)``.
     """
@@ -217,7 +223,7 @@ def occgrid_render_rays_test(
     full_lattice = num_ladder_steps(
         estimator.max_t_range, render_step_size, cone_angle, near=near_plane
     )
-    window = min(full_lattice, samples_per_round * 8)
+    window = lattice_per_round or min(full_lattice, samples_per_round * 8)
     rgb_sigma_fn = rgb_sigma_fn_builder(rays_o, rays_d)
 
     near_planes = torch.full((n_rays,), near_plane, dtype=dtype, device=device)

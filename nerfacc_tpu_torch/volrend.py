@@ -17,6 +17,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from .pack import pack_info  # noqa: F401  (importable from here, as from the JAX module)
 from .scan import exclusive_prod, exclusive_sum
 
 Tensor = torch.Tensor

@@ -1492,3 +1492,75 @@ def test_parallel_update_over_nccl_equals_update(nccl_world_of_one):
     assert tg.cell_max.launches == 2
     for k in ("occs", "binaries", "binaries_packed", "skip_grid", "skip_packed"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_level_split_lookups_on_the_card_match_the_cpu(cuda, cdt):
+    # hash_table_lookup_sized (K5), hash_lookup_combine (K4-w8) and
+    # hash_lookup_combine3 (K2 in bf16, K4-w3 in float32) over levels 1 and
+    # 2 of a 4-level table: one kernel launch a level on the level's rows,
+    # the other levels' rows zero, the table gradient within 1e-5 of the
+    # largest entry of the CPU's (the plain versions, float32 sums in
+    # another order).
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    T, m, base, n_levels = 4096, 20000, 1, 2
+    rng = np.random.default_rng(30)
+    idx = np.concatenate([(base + j) * T + np.concatenate([rng.integers(0, 16, m // 2), rng.integers(0, T, m // 2)])
+                          for j in range(n_levels)])
+    table = rng.standard_normal((4 * T, 128)).astype(np.float32)
+    w8 = rng.standard_normal((idx.size, 8)).astype(np.float32)
+    ws = rng.random((3, idx.size), dtype=np.float32)
+    split = dict(level_span=T, n_levels=n_levels, level_base=base)
+    lookups = (
+        ("table_grad_sorted", lambda t, i, d: tg.hash_table_lookup_sized(t, i, 1e-4, cdt, **split), 128, ()),
+        ("table_grad_w8", lambda t, i, d, w: tg.hash_lookup_combine(t, i, w, 1e-4, cdt, **split), 16, (w8,)),
+        ("table_grad_u10" if cdt else "table_grad_w3",
+         lambda t, i, d, *w: tg.hash_lookup_combine3(t, i, *w, 1e-4, cdt, **split), 16, tuple(ws)),
+    )
+    for wrapper, fn, width, weights in lookups:
+        r = rng.standard_normal((idx.size, width)).astype(np.float32)
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            t = torch.from_numpy(table).to(dev).requires_grad_(True)
+            before = getattr(tg, wrapper).launches
+            out = fn(t, torch.from_numpy(idx).to(dev), None, *(torch.from_numpy(w).to(dev) for w in weights))
+            (out.float() * torch.from_numpy(r).to(dev)).sum().backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert getattr(tg, wrapper).launches - before == n_levels, wrapper
+            grads.append(t.grad.cpu())
+        got, want = grads
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), wrapper
+        assert not got[: base * T].any() and not got[(base + n_levels) * T :].any(), wrapper
+
+
+@pytest.mark.cuda
+def test_grouped_scatter_route_on_the_card_matches_the_cpu(cuda):
+    # table_grad="scatter" in bf16: autograd's gather backward, no K6, and
+    # the positions get their gradient; the card against the CPU within
+    # 2e-2 of the largest entry (phase 8's bf16 gate).
+    from nerfacc_tpu_torch.models.hash_soa import HashGridEncoderGrouped
+    from nerfacc_tpu_torch.ops import table_grad as tg
+
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0.0, 1.0, (20000, 3)).astype(np.float32)
+    r = rng.standard_normal((20000, 32)).astype(np.float32)
+    state = HashGridEncoderGrouped(log2_hashmap_size=12, device="cpu",
+                                   generator=torch.Generator().manual_seed(0)).state_dict()
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        enc = HashGridEncoderGrouped(log2_hashmap_size=12, compute_dtype=torch.bfloat16, table_grad="scatter",
+                                     device=dev)
+        enc.load_state_dict(state)
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        before = tg.table_grad_pos.launches
+        (enc(xt).float() * torch.from_numpy(r).to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert tg.table_grad_pos.launches == before
+        grads.append((enc.table.grad.cpu(), xt.grad.cpu()))
+    for got, want in zip(*grads):
+        assert float(want.abs().max()) > 0
+        assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())

@@ -209,7 +209,7 @@ def _jax_scatter_grads(paired):
 @pytest.mark.parametrize("cdt", [None, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_pallas_and_scatter_routes_match_jax_scatter(paired, cdt):
     # tests/test_models.py:431 and :472: the port's pallas route (K5's plain
-    # version, twice with pairing: the endpoints' levels and the rest) and
+    # version, once a level, the paired endpoints' levels included) and
     # its scatter route (autograd) against JAX's scatter, whose autodiff
     # also gives the positions a gradient.  float32: forward bit-equal to
     # each other, rtol 1e-5 / atol 1e-5 against JAX's gradient; bf16: 2e-2
@@ -230,7 +230,7 @@ def test_fused_pallas_and_scatter_routes_match_jax_scatter(paired, cdt):
         (yp.float() * torch.from_numpy(r)).sum().backward()
     finally:
         tg.table_grad_sorted = real
-    assert len(calls) == (2 if paired else 1)
+    assert len(calls) == PALLAS_KW["n_levels"]
     scale = np.abs(g_j).max()
     np.testing.assert_allclose(t_scatter.table.grad.numpy(), g_j, rtol=1e-5, atol=1e-5 * scale)
     # The scatter route is the only one that gives positions a gradient.
